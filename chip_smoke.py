@@ -6,25 +6,35 @@
 Phases, each of which exits non-zero on any failure:
 
 1. device   the card's name and power limit (nvidia-smi);
-2. build    nvcc compiles csrc/ld_kernels.cu for sm_90a;
+2. build    nvcc compiles csrc/ld_kernels.cu for sm_90a (every instance);
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes the scan and the headline sweep give it (640-row
-            blocks, W = 5,120, a ragged row count, monomorphic rows): the
-            triangle kernel (K1), the band sweep (K3) and the fused count
-            pass (K5) in both mask modes, both measures, with and without
-            the distance window; pass-1 counts against pass-2 hits in both
-            mask modes; per kernel its time, the plain version's, the
-            least time the card could take, and torch._int_mm over the
+            blocks, W = 5,120 int8 haplotypes or 640 packed bytes, a ragged
+            row count, monomorphic rows): the triangle kernel on int8 rows
+            (K1), its bf16 and tf32 routes (K1b) and its bit-plane form on
+            the packed bytes (K2); the band sweep (K3) and its bit-plane
+            form (K4); the fused count pass (K5) and its bit-plane form
+            (K6), in both mask modes, both measures, with and without the
+            distance window.  Every bit-plane and K1b output must equal its
+            int8 twin's bit for bit (K2 = K1, K1b = K1, K4 = K3, K6 = K5).
+            Pass-1 counts against pass-2 hits in both mask modes and both
+            resident layouts.  Per kernel its time, the plain version's,
+            the least time the card could take, and torch._int_mm over the
             same int8 block products as a yardstick the port never calls;
 4. scan     the ld_scan tool (ld_tools_tpu_torch.ld_scan.main, what
             ``python -m ld_tools_tpu_torch.ld_scan`` runs) on a chr21-scale
             store of 102,400 variants x 5,008 haplotypes written by the
-            port's own ingest, once without and once with -w 1000000, with
-            the launch counts read around each run, the hits held against
-            an f64 recount of sampled pairs, and the windowed hits held
-            against the unwindowed ones;
-5. parity   a 10,240-variant store: the -E cuda TSV must be byte-identical
-            to the -E torch TSV (plain versions on the CPU).
+            port's own ingest: without and with -w 1000000 (the int8
+            resident layout: K5, K3), then again without a window under
+            TPU_LD_DENSE_RESIDENT_BYTES=0 (the packed layout: K6, K4; the
+            TSV must be byte-identical).  Then the slice at full size: a
+            store of 1,105,920 variants (the record count of a 1000 Genomes
+            chromosome VCF) scanned with -w 1000000 at the default limit,
+            where ``auto`` keeps the bytes packed.  The launch counts are
+            read around each run and every run's hits are held against an
+            f64 recount of sampled hits and pairs;
+5. parity   a 10,240-variant store: the -E cuda TSVs of both layouts must
+            be byte-identical to the -E torch TSV (plain versions, CPU).
 
 It ends with a JSON line of the build time and the scans' phases and
 launch counts, a ``kernels`` JSON line, the nvidia-smi line and, last, the
@@ -43,17 +53,50 @@ import time
 
 import numpy as np
 
-H100_INT8_OPS = 1979e12  # dense int8 tensor-core peak, H100 SXM data sheet
-H100_HBM_BYTES = 3.35e12  # HBM3 bytes per second, H100 SXM data sheet
+# H100 SXM data sheet, dense tensor-core peaks and HBM3 rate
+H100_INT8_OPS = 1979e12
+H100_BF16_FLOPS = 989e12
+H100_TF32_FLOPS = 495e12
+H100_HBM_BYTES = 3.35e12
 # chr21 scale: scripts/bench_suite.py, config 4b_chr21_scan_100k_exact
 N_VARIANTS = 102_400
 N_HAP = 5008
+W_DENSE = 5120   # haplotypes padded to 128
+W_PACKED = 640   # the 626 packed bytes padded to 128
 BLOCK = 640
+# the slice at full size: 144 x 7,680 variants, the record count of a
+# 1000 Genomes phase-3 chromosome VCF (chr21: about 1.1 M), in runs of 8
+# correlated rows (about 2.3 M hits, near the 102,400-variant store's)
+N_VARIANTS_FULL = 1_105_920
+RUN_FULL = 8
+SPAN = 46_000_000  # positions over 46 Mb, as chr21's
+N_TRIANGLE = 10_240  # the headline triangle sweep of bench.py
+N_RAGGED = 10_000    # the ragged check slice: its last block is partial
+N_PARITY = 10_240    # the -E cuda / -E torch store
+LIMIT = "TPU_LD_DENSE_RESIDENT_BYTES"
 SOURCE = "ld_tools_tpu_torch/csrc/ld_kernels.cu"
-REPLACES = {
-    "ld_triangle_kernel": "ld_tools_tpu/ops/ld_pallas.py:259",
-    "ld_band_sweep_kernel": "ld_tools_tpu/ops/ld_pallas.py:747",
-    "ld_band_count_kernel": "ld_tools_tpu/ops/ld_pallas.py:909",
+PALLAS = "ld_tools_tpu/ops/ld_pallas.py"
+# kernel name -> (its tag in ROADMAP.md, the TPU kernel it replaces)
+KERNELS = {
+    "ld_triangle_kernel": ("K1", f"{PALLAS}:259"),
+    "ld_triangle_kernel<FORM_BF16>": ("K1b", f"{PALLAS}:292"),
+    "ld_triangle_kernel<FORM_TF32>": ("K1b", f"{PALLAS}:292"),
+    "ld_triangle_kernel<FORM_BITS>": ("K2", f"{PALLAS}:303"),
+    "ld_band_sweep_kernel": ("K3", f"{PALLAS}:747"),
+    "ld_band_sweep_kernel<FORM_BITS>": ("K4", f"{PALLAS}:693"),
+    "ld_band_count_kernel": ("K5", f"{PALLAS}:909"),
+    "ld_band_count_kernel<FORM_BITS>": ("K6", f"{PALLAS}:949"),
+}
+# launch site (ops/ld_kernels.py) -> the kernel it launches
+KERNEL_OF_SITE = {
+    "ld_triangle_blocks": "ld_triangle_kernel",
+    "ld_triangle_blocks_bf16": "ld_triangle_kernel<FORM_BF16>",
+    "ld_triangle_blocks_tf32": "ld_triangle_kernel<FORM_TF32>",
+    "ld_triangle_blocks_packed": "ld_triangle_kernel<FORM_BITS>",
+    "ld_band_sweep_blocks": "ld_band_sweep_kernel",
+    "ld_band_sweep_blocks_packed": "ld_band_sweep_kernel<FORM_BITS>",
+    "ld_band_count": "ld_band_count_kernel",
+    "ld_band_count_packed": "ld_band_count_kernel<FORM_BITS>",
 }
 
 
@@ -88,28 +131,41 @@ def cuda_ms(fn, reps, warmup=1):
     return start.elapsed_time(end) / reps
 
 
-def bound(ops, nbytes):
-    """(ms, "operations" or "bytes"): the larger of int8 tensor-core time
-    and HBM time at the card's published peaks."""
-    t_ops = ops / H100_INT8_OPS * 1e3
+def bound(ops, nbytes, peak=H100_INT8_OPS):
+    """(ms, "operations" or "bytes"): the larger of the tensor-core time at
+    ``peak`` and the HBM time, at the card's published rates."""
+    t_ops = ops / peak * 1e3
     t_bytes = nbytes / H100_HBM_BYTES * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
-def scan_dataset(v, seed):
-    """scripts/bench_suite.py:_scan_dataset: blocks of 64 identical rows
-    with 2% flip noise, positions over 46 Mb; the store's packed bytes."""
+def scan_dataset(v, seed, run=64):
+    """After scripts/bench_suite.py:_scan_dataset: runs of ``run``
+    identical rows (allele frequency uniform in [0.05, 0.95]) with 2 %
+    flip noise, unique positions over 46 Mb; the store's packed bytes.
+    Made on the card in row chunks, so a chromosome-scale store never
+    needs its int8 matrix (5.5 GB at 1.1 M variants) on the host."""
+    import torch
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    dev = torch.device("cuda")
+    weights = 2 ** torch.arange(7, -1, -1, device=dev, dtype=torch.int32)
+    gp = np.empty((v, N_HAP // 8), dtype=np.uint8)
+    rows = (65_536 // run) * run
+    for lo in range(0, v, rows):
+        n = min(rows, v - lo)
+        n_runs = -(-n // run)
+        freq = 0.05 + 0.9 * torch.rand((n_runs, 1), generator=gen, device=dev)
+        base = torch.rand((n_runs, N_HAP), generator=gen, device=dev) < freq
+        G = base.repeat_interleave(run, dim=0)[:n]
+        G ^= torch.rand((n, N_HAP), generator=gen, device=dev) < 0.02
+        bits = G.view(n, N_HAP // 8, 8).to(torch.int32)
+        gp[lo:lo + n] = (bits * weights).sum(dim=2).to(torch.uint8).cpu().numpy()
+        del freq, base, G, bits
     rng = np.random.default_rng(seed)
-    blk = 64
-    base = (
-        rng.random((v // blk, N_HAP))
-        < rng.uniform(0.05, 0.95, size=(v // blk, 1))
-    ).astype(np.int8)
-    G = np.repeat(base, blk, axis=0)
-    G = np.where(rng.random(G.shape) < 0.02, 1 - G, G).astype(np.int8)
-    pos = np.sort(rng.choice(46_000_000, size=v, replace=False)).astype(
-        np.int64)
-    return np.packbits(G.astype(np.uint8), axis=1), pos
+    pos = np.sort(rng.choice(SPAN, size=v, replace=False)).astype(np.int64)
+    return gp, pos
 
 
 def write_store(d, chrom, gp, pos, seed):
@@ -142,6 +198,13 @@ def read_tsv(path, pos):
     i = np.searchsorted(pos, np.asarray(cols[0], dtype=np.int64))
     j = np.searchsorted(pos, np.asarray(cols[2], dtype=np.int64))
     return i, j, np.asarray(cols[5]), np.asarray(cols[6])
+
+
+def _packed_rows(G):
+    """int8 (V, 5,008) rows -> the (V, 640) bytes the packed kernels take."""
+    gp = np.zeros((G.shape[0], W_PACKED), dtype=np.uint8)
+    gp[:, :N_HAP // 8] = np.packbits(G.astype(np.uint8), axis=1)
+    return gp
 
 
 # ---- phases ----------------------------------------------------------------
@@ -177,7 +240,8 @@ def phase_build():
 
 def _check_rows(gp_host, pos, n_rows):
     """A ragged (n_rows) slice of the chromosome with monomorphic (all 0,
-    all 1) and near-monomorphic rows, as the scan's device tensors."""
+    all 1) and near-monomorphic rows, as the scan's device tensors in both
+    layouts: (G, int8 resident, packed resident)."""
     from ld_tools_tpu_torch.ops.ld_stream import prepare_resident
 
     G = np.unpackbits(gp_host[:n_rows], axis=1, count=N_HAP).astype(np.int8)
@@ -189,69 +253,94 @@ def _check_rows(gp_host, pos, n_rows):
     G[8, 13] = 0
     G[n_rows - 1] = 0  # in the partial last block
     res = prepare_resident(G, N_HAP, pos[:n_rows], "cuda")
-    return G, res
+    resp = prepare_resident(np.packbits(G.astype(np.uint8), axis=1), N_HAP,
+                            pos[:n_rows], "cuda", packed=True,
+                            resident="packed")
+    check(not res.packed and resp.packed, "resident layouts")
+    check(resp.g.shape[1] == W_PACKED, f"packed width {resp.g.shape[1]}")
+    return G, res, resp
 
 
-def _check_triangle(g, c1, ipq, cij, what):
-    """K1 against its plain version on the blocks ``cij`` of ``g``, fast
-    and exact epilogues, D' on and off; the largest abs error."""
+def _triangle_routes():
+    """name -> (launch site, plain version, packed rows?, tensor-core peak)."""
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    return {
+        "ld_triangle_kernel": (lk.ld_triangle_blocks,
+                               lk.ld_triangle_blocks_plain, False,
+                               H100_INT8_OPS),
+        "ld_triangle_kernel<FORM_BF16>": (lk.ld_triangle_blocks_bf16,
+                                          lk.ld_triangle_blocks_bf16_plain,
+                                          False, H100_BF16_FLOPS),
+        "ld_triangle_kernel<FORM_TF32>": (lk.ld_triangle_blocks_tf32,
+                                          lk.ld_triangle_blocks_tf32_plain,
+                                          False, H100_TF32_FLOPS),
+        "ld_triangle_kernel<FORM_BITS>": (lk.ld_triangle_blocks_packed,
+                                          lk.ld_triangle_blocks_packed_plain,
+                                          True, H100_INT8_OPS),
+    }
+
+
+def _check_triangle(name, g, gq, c1, ipq, cij, what):
+    """A triangle route against its plain version on the blocks ``cij``,
+    fast and exact epilogues, D' on and off, and against K1 (its int8
+    twin) bit for bit; the largest abs error against the plain version.
+    ``g`` holds the int8 rows, ``gq`` the same rows packed."""
     import torch
 
     from ld_tools_tpu_torch.ops import ld_kernels as lk
 
+    site, plain, packed, _ = _triangle_routes()[name]
+    rows = gq if packed else g
     err = 0.0
     for epi, want_dp in (("fast", False), ("exact", True), ("exact", False)):
         kw = dict(epilogue=epi, want_dprime=want_dp, block_m=BLOCK,
                   block_n=BLOCK)
-        got = lk.ld_triangle_blocks(g, c1, ipq, cij, N_HAP, **kw)
-        ref = lk.ld_triangle_blocks_plain(g, c1, ipq, cij, N_HAP, **kw)
+        got = site(rows, c1, ipq, cij, N_HAP, **kw)
+        ref = plain(rows, c1, ipq, cij, N_HAP, **kw)
+        twin = (got if site is lk.ld_triangle_blocks
+                else lk.ld_triangle_blocks(g, c1, ipq, cij, N_HAP, **kw))
         torch.cuda.synchronize()
-        for a, b in zip(got, ref):
+        for a, b, t in zip(got, ref, twin):
             if b is None:
-                check(a is None, "K1 returned D' it was not asked for")
+                check(a is None, f"{name} returned D' it was not asked for")
                 continue
             e = float((a - b).abs().max())
             err = max(err, e)
-            check(e <= 1e-6, f"K1 {what} {epi}/dp={want_dp}: max abs err {e}")
-        del got, ref
+            check(e <= 1e-6, f"{name} {what} {epi}/dp={want_dp}: max abs "
+                  f"err {e}")
+            check(torch.equal(a, t), f"{name} {what} {epi}/dp={want_dp}: "
+                  "differs from K1")
+        del got, ref, twin
     return err
 
 
-def phase_kernels(gp_host, pos, results):
-    """Every kernel against its plain version on the card; timings."""
+def phase_triangles(results):
+    """K1, K1b and K2 at the headline sweep (bench.py): V = 10,240 random
+    rows, fast epilogue; each route's own entry point is its path."""
     import torch
 
     from ld_tools_tpu_torch.ops import ld_kernels as lk
-    from ld_tools_tpu_torch.ops import ld_stream as ls
 
-    torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 plain counts
     dev = torch.device("cuda")
-    W = 5120
-
-    # K1: the headline triangle sweep, V = 10,240 random rows (bench.py)
     rng = np.random.default_rng(0)
-    v1 = 10240
+    v1 = N_TRIANGLE
     freqs = rng.uniform(0.05, 0.95, size=(v1, 1))
     G1 = (rng.random((v1, N_HAP)) < freqs).astype(np.int8)
     G1[1] = 0
     G1[2] = 1
     G1[3] = 0
     G1[3, 9] = 1
-    g1 = torch.zeros((v1, W), dtype=torch.int8, device=dev)
+    g1 = torch.zeros((v1, W_DENSE), dtype=torch.int8, device=dev)
     g1[:, :N_HAP] = torch.from_numpy(G1).to(dev)
+    gq1 = torch.from_numpy(_packed_rows(G1)).to(dev)
     c1 = g1.to(torch.float32).sum(dim=1)
     ipq = lk._ipq_from_counts(c1, torch.tensor(float(N_HAP), device=dev))
     bi, bj = lk._triangle_coords(v1 // BLOCK)
     cij1 = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
-    kw1 = dict(block_m=BLOCK, block_n=BLOCK)
-    err1 = _check_triangle(g1, c1, ipq, cij1, f"V={v1}")
-    out = (torch.empty((v1, v1), dtype=torch.float32, device=dev), None)
-    fast = dict(epilogue="fast", want_dprime=False, **kw1)
-    ms1 = cuda_ms(lambda: lk.ld_triangle_blocks(g1, c1, ipq, cij1, N_HAP,
-                                                out=out, **fast), reps=20)
-    plain1 = cuda_ms(lambda: lk.ld_triangle_blocks_plain(
-        g1, c1, ipq, cij1, N_HAP, **fast), reps=2)
-    del out
+    n1 = len(bi)
+    fast = dict(epilogue="fast", want_dprime=False, block_m=BLOCK,
+                block_n=BLOCK)
 
     def int_mm_rows(g, nb):
         for k in range(nb):
@@ -259,33 +348,79 @@ def phase_kernels(gp_host, pos, results):
                           g[:(k + 1) * BLOCK].t())
 
     mm1 = cuda_ms(lambda: int_mm_rows(g1, v1 // BLOCK), reps=5)
-    n1 = len(bi)
-    b1 = bound(2 * n1 * BLOCK * BLOCK * N_HAP,
-               v1 * W + 8 * v1 + 4 * n1 + 4 * n1 * BLOCK * BLOCK)
-    # the triangle sweep as its own path: launches counted around it
-    lk.reset_launches()
-    r2, _ = lk.ld_triangle_matrix(g1[:, :N_HAP].contiguous(), N_HAP,
-                                  block_m=BLOCK, block_n=BLOCK,
-                                  epilogue="fast", want_dprime=False)
-    torch.cuda.synchronize()
-    check(torch.isfinite(r2).all(), "K1 path: non-finite r^2")
-    launches1 = lk.ld_triangle_blocks.launches
-    check(launches1 == 1, f"K1 path launched {launches1} times")
-    del r2, g1
-    results["ld_triangle_kernel"] = dict(
-        launches=launches1, max_abs_err=err1, ms=ms1, plain_ms=plain1,
-        bound_ms=b1[0], bound_by=b1[1], library_ms=None, int_mm_ms=mm1,
-        path="triangle sweep, V=10240 (ld_triangle_matrix)",
-        shape=f"{n1} blocks of {BLOCK}x{BLOCK}, W={W}, fast epilogue")
-    log(f"K1 ld_triangle_kernel: {ms1:.3f} ms, plain {plain1:.3f} ms, "
-        f"bound {b1[0]:.3f} ms ({b1[1]}), torch._int_mm {mm1:.3f} ms, "
-        f"max abs err {err1:.3g}")
+    out = (torch.empty((v1, v1), dtype=torch.float32, device=dev), None)
+    G1_dev = g1[:, :N_HAP].contiguous()
+    gp1_dev = gq1[:, :N_HAP // 8].contiguous()
+    # each route's entry point: (its name, the call)
+    paths = {
+        "ld_triangle_kernel": ("ld_triangle_matrix", lambda: (
+            lk.ld_triangle_matrix(G1_dev, N_HAP, **fast))),
+        "ld_triangle_kernel<FORM_BF16>": (
+            "ld_triangle_matrix(mxu_dtype=bfloat16)",
+            lambda: lk.ld_triangle_matrix(G1_dev, N_HAP,
+                                          mxu_dtype="bfloat16", **fast)),
+        "ld_triangle_kernel<FORM_TF32>": (
+            "ld_triangle_matrix(mxu_dtype=float32)",
+            lambda: lk.ld_triangle_matrix(G1_dev, N_HAP,
+                                          mxu_dtype="float32", **fast)),
+        "ld_triangle_kernel<FORM_BITS>": (
+            "ld_triangle_matrix_packed(kernel=bitplane)",
+            lambda: lk.ld_triangle_matrix_packed(gp1_dev, N_HAP,
+                                                 kernel="bitplane", **fast)),
+    }
+    r2_k1 = None
+    for name, (site, plain, packed, peak) in _triangle_routes().items():
+        rows = gq1 if packed else g1
+        err = _check_triangle(name, g1, gq1, c1, ipq, cij1, f"V={v1}")
+        ms = cuda_ms(lambda: site(rows, c1, ipq, cij1, N_HAP, out=out,
+                                  **fast), reps=20)
+        plain_ms = cuda_ms(lambda: plain(rows, c1, ipq, cij1, N_HAP, **fast),
+                           reps=2)
+        b = bound(2 * n1 * BLOCK * BLOCK * N_HAP,
+                  v1 * rows.shape[1] + 8 * v1 + 4 * n1
+                  + 4 * n1 * BLOCK * BLOCK, peak)
+        # the route's own path: launch counts read around it
+        entry, call = paths[name]
+        lk.reset_launches()
+        r2, _ = call()
+        torch.cuda.synchronize()
+        launches = site.launches
+        others = sum(s.launches for s in lk.LAUNCH_SITES if s is not site)
+        check(torch.isfinite(r2).all(), f"{name} path: non-finite r^2")
+        check(launches == 1 and others == 0,
+              f"{name} path launched {launches} times ({others} others)")
+        if r2_k1 is None:
+            r2_k1 = r2
+        else:
+            check(torch.equal(r2, r2_k1), f"{name} path differs from K1's")
+        del r2
+        results[name] = dict(
+            launches=launches, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b[0], bound_by=b[1], library_ms=None, int_mm_ms=mm1,
+            path=f"triangle sweep, V={v1} ({entry})",
+            shape=f"{n1} blocks of {BLOCK}x{BLOCK}, W={rows.shape[1]} "
+                  f"{'bytes' if packed else 'int8'}, fast epilogue")
+        log(f"{KERNELS[name][0]} {name}: {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm1:.3f} ms, "
+            f"max abs err {err:.3g}")
+    del out, g1, gq1, r2_k1
+    torch.cuda.empty_cache()
 
-    # K5, K1 and K3 on a ragged slice with monomorphic rows, every mode
-    n_rows = 10_000
-    Gc, rc = _check_rows(gp_host, pos, n_rows)
-    g, c1r, ipqr, posr = (rc.g[:n_rows], rc.c1[:n_rows], rc.ipq[:n_rows],
-                          rc.pos[:n_rows])
+
+def phase_ragged(gp_host, pos, results):
+    """Every kernel on a ragged slice with monomorphic rows, every mode,
+    against its plain version and its int8 twin; pass-1 counts against
+    pass-2 hits in both mask modes and both layouts."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+    from ld_tools_tpu_torch.ops import ld_stream as ls
+
+    dev = torch.device("cuda")
+    n_rows = N_RAGGED
+    Gc, rc, rq = _check_rows(gp_host, pos, n_rows)
+    g, gq = rc.g[:n_rows], rq.g[:n_rows]
+    c1r, ipqr, posr = rc.c1[:n_rows], rc.ipq[:n_rows], rc.pos[:n_rows]
     nbc = -(-n_rows // BLOCK)
     bi, bj = np.tril_indices(nbc)
     cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
@@ -295,138 +430,239 @@ def phase_kernels(gp_host, pos, results):
             for use_dist in (False, True):
                 kw = dict(sel=sel, exact_mask=exact_mask, use_dist=use_dist,
                           block_m=BLOCK, block_n=BLOCK)
-                got = lk.ld_band_count(
-                    g, c1r, ipqr, posr, cij, (N_HAP, 1_000_000), (thres,),
-                    packed=False, **kw)
-                ref = lk.ld_band_count_plain(
-                    g, c1r, ipqr, posr, cij, N_HAP, 1_000_000, thres, **kw)
-                check(torch.equal(got, ref),
-                      f"K5 exact_mask={exact_mask} sel={sel} "
-                      f"dist={use_dist}: counts differ in "
-                      f"{int((got != ref).sum())} blocks")
-                check(int(got.sum()) > 0, "K5 check kept nothing")
-    # K1 on the same ragged rows: the last block row is partial
-    err1 = max(err1, _check_triangle(g, c1r, ipqr, cij, f"V={n_rows}"))
-    results["ld_triangle_kernel"]["max_abs_err"] = err1
-    err3 = 0.0
+                what = (f"exact_mask={exact_mask} sel={sel} "
+                        f"dist={use_dist}")
+                args = (c1r, ipqr, posr, cij, (N_HAP, 1_000_000), (thres,))
+                got5 = lk.ld_band_count(g, *args, packed=False, **kw)
+                got6 = lk.ld_band_count(gq, *args, packed=True, **kw)
+                pargs = (c1r, ipqr, posr, cij, N_HAP, 1_000_000, thres)
+                ref5 = lk.ld_band_count_plain(g, *pargs, **kw)
+                ref6 = lk.ld_band_count_packed_plain(gq, *pargs, **kw)
+                check(torch.equal(got5, ref5), f"K5 {what}: counts differ "
+                      f"in {int((got5 != ref5).sum())} blocks")
+                check(torch.equal(got6, ref6), f"K6 {what}: counts differ "
+                      f"in {int((got6 != ref6).sum())} blocks")
+                check(torch.equal(got6, got5), f"K6 {what}: differs from K5")
+                check(int(got5.sum()) > 0, f"K5 {what} kept nothing")
+    log("K5, K6: every mode equals the plain versions; K6 = K5 bit for bit "
+        f"({n_rows} ragged rows)")
+    # the triangle routes on the same rows: the last block row is partial
+    for name in _triangle_routes():
+        e = _check_triangle(name, g, gq, c1r, ipqr, cij, f"V={n_rows}")
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
     hit = torch.cat([cij[:20], cij[-20:]])  # the last holds partial blocks
+    err = {"ld_band_sweep_kernel": 0.0, "ld_band_sweep_kernel<FORM_BITS>": 0.0}
     for outs, sel in ((("cab",), 0), (("cab", "r2", "dp", "meas"), 0),
                       (("meas",), 1)):
-        got = lk.ld_band_sweep_blocks(g, g, c1r, c1r, ipqr, ipqr, hit, N_HAP,
-                                      outs=outs, sel=sel, block_m=BLOCK,
-                                      block_n=BLOCK)
-        ref = lk.ld_band_sweep_blocks_plain(g, g, c1r, c1r, ipqr, ipqr, hit,
-                                            N_HAP, outs=outs, sel=sel,
-                                            block_m=BLOCK, block_n=BLOCK)
+        kw = dict(outs=outs, sel=sel, block_m=BLOCK, block_n=BLOCK)
+        vecs = (c1r, c1r, ipqr, ipqr, hit, N_HAP)
+        got3 = lk.ld_band_sweep_blocks(g, g, *vecs, **kw)
+        got4 = lk.ld_band_sweep_blocks_packed(gq, gq, *vecs, **kw)
+        ref3 = lk.ld_band_sweep_blocks_plain(g, g, *vecs, **kw)
+        ref4 = lk.ld_band_sweep_blocks_packed_plain(gq, gq, *vecs, **kw)
+        for name, got, ref in (("ld_band_sweep_kernel", got3, ref3),
+                               ("ld_band_sweep_kernel<FORM_BITS>", got4,
+                                ref4)):
+            for o in outs:
+                if o == "cab":
+                    check(torch.equal(got[o], ref[o]), f"{name} cab differs")
+                else:
+                    e = float((got[o] - ref[o]).abs().max())
+                    err[name] = max(err[name], e)
+                    check(e <= 1e-6, f"{name} {o} sel={sel}: max abs err {e}")
         for o in outs:
-            if o == "cab":
-                check(torch.equal(got[o], ref[o]), "K3 cab differs")
-            else:
-                e = float((got[o] - ref[o]).abs().max())
-                err3 = max(err3, e)
-                check(e <= 1e-6, f"K3 {o} sel={sel}: max abs err {e}")
-    # pass-1 counts against pass-2 hits, both mask modes, on the card
+            check(torch.equal(got4[o], got3[o]), f"K4 {o} differs from K3")
+    for name, e in err.items():
+        results[name] = dict(max_abs_err=e)
+    log("K3, K4: every output equals the plain versions; K4 = K3 bit for bit")
+    # pass-1 counts against pass-2 hits, both mask modes, both layouts
+    gpc = np.packbits(Gc.astype(np.uint8), axis=1)
     for max_hap in (ls._EXACT_MASK_MAX_HAP, 0):
         saved = ls._EXACT_MASK_MAX_HAP
         ls._EXACT_MASK_MAX_HAP = max_hap
         try:
             for measure in ("r_square", "d_prime"):
-                hits = ls.stream_threshold_scan(
-                    Gc, pos=pos[:n_rows], measure=measure, thres=0.8,
-                    max_dist=1_000_000, device="cuda")
-                st = hits.stats
-                check(st["blocks_checked"] == st["hit_blocks"] > 0,
-                      f"pass 2 checked {st['blocks_checked']} of "
-                      f"{st['hit_blocks']} hit blocks")
+                kw = dict(pos=pos[:n_rows], measure=measure, thres=0.8,
+                          max_dist=1_000_000, device="cuda")
+                hits = {
+                    "dense": ls.stream_threshold_scan(Gc, **kw),
+                    "packed": ls.stream_threshold_scan(
+                        G_packed=gpc, n_haplotypes=N_HAP, resident="packed",
+                        **kw),
+                }
+                for layout, h in hits.items():
+                    st = h.stats
+                    check(st["resident_packed"] == float(layout == "packed"),
+                          f"{layout} scan ran the other layout")
+                    check(st["blocks_checked"] == st["hit_blocks"] > 0,
+                          f"{layout}: pass 2 checked {st['blocks_checked']} "
+                          f"of {st['hit_blocks']} hit blocks")
+                a, b = hits["dense"], hits["packed"]
+                check(np.array_equal(a.i, b.i) and np.array_equal(a.j, b.j)
+                      and np.array_equal(a.r_square, b.r_square)
+                      and np.array_equal(a.d_prime, b.d_prime),
+                      f"{measure}: the layouts' hits differ")
         finally:
             ls._EXACT_MASK_MAX_HAP = saved
     log(f"pass-1 counts == pass-2 hits per block: integer and f32 masks, "
-        f"r^2 and D' ({n_rows} ragged rows)")
-    del rc, g, c1r, ipqr, posr
+        f"r^2 and D', int8 and packed layouts ({n_rows} ragged rows)")
+    del rc, rq, g, gq
+    torch.cuda.empty_cache()
 
-    # K5 and K3 at the main path's shapes: the chromosome's count pass
-    # and its batch of hit blocks
-    res = ls.prepare_resident(gp_host, N_HAP, pos, "cuda", packed=True)
+
+def phase_scan_shapes(gp_host, pos, results):
+    """K5/K6 over the chromosome's count pass and K3/K4 over its batch of
+    hit blocks, both layouts of the same store: times and bounds."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+    from ld_tools_tpu_torch.ops import ld_stream as ls
+
+    dev = torch.device("cuda")
+    rd = ls.prepare_resident(gp_host, N_HAP, pos, "cuda", packed=True)
+    rp = ls.prepare_resident(gp_host, N_HAP, pos, "cuda", packed=True,
+                             resident="packed")
+    check(not rd.packed and rp.packed, "auto must inflate at chr21 scale")
     v = gp_host.shape[0]
     bi, bj = ls._scan_blocks(v, pos, BLOCK, None)
     cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
+    thres = 0.8 - 5e-4
     kw5 = dict(sel=0, exact_mask=True, use_dist=False, block_m=BLOCK,
                block_n=BLOCK)
-
-    def count():
-        return lk.ld_band_count(res.g, res.c1, res.ipq, res.pos, cij,
-                                (N_HAP, 0), (thres,), packed=False, **kw5)
-
-    def count_plain():
-        return lk.ld_band_count_plain(res.g, res.c1, res.ipq, res.pos, cij,
-                                      N_HAP, 0, thres, **kw5)
-
-    counts = count()
-    ref = count_plain()
-    check(torch.equal(counts, ref), "K5 main-path counts differ from plain")
-    ms5 = cuda_ms(count, reps=3)
-    plain5 = cuda_ms(count_plain, reps=1, warmup=0)
-    del ref
-    mm5 = cuda_ms(lambda: int_mm_rows(res.g, -(-v // BLOCK)), reps=1)
     nb5 = len(bi)
     diag = int((bi == bj).sum())
     cells5 = (nb5 - diag) * BLOCK * BLOCK + diag * BLOCK * (BLOCK - 1) // 2
     rows5 = -(-v // BLOCK) * BLOCK
-    b5 = bound(2 * cells5 * N_HAP, rows5 * (W + 12) + 8 * nb5)
-    results["ld_band_count_kernel"] = dict(
-        max_abs_err=0.0, ms=ms5, plain_ms=plain5, bound_ms=b5[0],
-        bound_by=b5[1], library_ms=None, int_mm_ms=mm5,
-        path="ld_scan (pass 1)",
-        shape=f"{nb5} blocks of {BLOCK}x{BLOCK}, W={W}, integer mask")
-    log(f"K5 ld_band_count_kernel: {ms5:.3f} ms, plain {plain5:.3f} ms, "
-        f"bound {b5[0]:.3f} ms ({b5[1]}), torch._int_mm {mm5:.3f} ms "
-        f"({nb5} blocks)")
 
-    hit_idx = torch.nonzero(counts > 0).reshape(-1)
+    def int_mm_rows(g, nb):
+        for k in range(nb):
+            torch._int_mm(g[k * BLOCK:(k + 1) * BLOCK],
+                          g[:(k + 1) * BLOCK].t())
+
+    mm5 = cuda_ms(lambda: int_mm_rows(rd.g, -(-v // BLOCK)), reps=1)
+    counts = {}
+    for name, res in (("ld_band_count_kernel", rd),
+                      ("ld_band_count_kernel<FORM_BITS>", rp)):
+        args = (res.g, res.c1, res.ipq, res.pos, cij)
+
+        def count():
+            return lk.ld_band_count(*args, (N_HAP, 0), (thres,),
+                                    packed=res.packed, **kw5)
+
+        plain = (lk.ld_band_count_packed_plain if res.packed
+                 else lk.ld_band_count_plain)
+        counts[name] = count()
+        ref = plain(*args, N_HAP, 0, thres, **kw5)
+        check(torch.equal(counts[name], ref),
+              f"{name} main-path counts differ from plain")
+        del ref
+        ms = cuda_ms(count, reps=3)
+        plain_ms = cuda_ms(lambda: plain(*args, N_HAP, 0, thres, **kw5),
+                           reps=1, warmup=0)
+        b = bound(2 * cells5 * N_HAP, rows5 * (res.g.shape[1] + 12) + 8 * nb5)
+        results[name] = dict(
+            max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
+            bound_by=b[1], library_ms=None, int_mm_ms=mm5,
+            path="ld_scan (pass 1)",
+            shape=f"{nb5} blocks of {BLOCK}x{BLOCK}, W={res.g.shape[1]} "
+                  f"{'bytes' if res.packed else 'int8'}, integer mask")
+        log(f"{KERNELS[name][0]} {name}: {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm5:.3f} ms "
+            f"({nb5} blocks)")
+    check(torch.equal(counts["ld_band_count_kernel"],
+                      counts["ld_band_count_kernel<FORM_BITS>"]),
+          "K6 main-path counts differ from K5's")
+
+    hit_idx = torch.nonzero(counts["ld_band_count_kernel"] > 0).reshape(-1)
     per_batch = ls._FETCH_CELLS_PER_BATCH // (BLOCK * BLOCK)
     hit_cij = cij[hit_idx[:per_batch]].contiguous()
     nb3 = hit_cij.shape[0]
     check(nb3 > 0, "the main path has no hit blocks")
-    kw3 = dict(outs=("cab",), sel=0, block_m=BLOCK, block_n=BLOCK)
-    args3 = (res.g, res.g, res.c1, res.c1, res.ipq, res.ipq, hit_cij, N_HAP)
-    got = lk.ld_band_sweep_blocks(*args3, **kw3)
-    ref = lk.ld_band_sweep_blocks_plain(*args3, **kw3)
-    check(torch.equal(got["cab"], ref["cab"]), "K3 main-path cab differs")
-    del got, ref
-    ms3 = cuda_ms(lambda: lk.ld_band_sweep_blocks(*args3, **kw3), reps=5)
-    plain3 = cuda_ms(lambda: lk.ld_band_sweep_blocks_plain(*args3, **kw3),
-                     reps=1)
     hb = hit_cij.to(torch.int64).cpu().numpy()
 
     def int_mm_blocks():
         for code in hb:
             r, c = (code >> 16) * BLOCK, (code & 0xFFFF) * BLOCK
-            torch._int_mm(res.g[r:r + BLOCK], res.g[c:c + BLOCK].t())
+            torch._int_mm(rd.g[r:r + BLOCK], rd.g[c:c + BLOCK].t())
 
     mm3 = cuda_ms(int_mm_blocks, reps=3)
     rows3 = len(set((hb >> 16).tolist()) | set((hb & 0xFFFF).tolist()))
-    b3 = bound(2 * nb3 * BLOCK * BLOCK * N_HAP,
-               rows3 * BLOCK * (W + 8) + 4 * nb3 + 4 * nb3 * BLOCK * BLOCK)
-    results["ld_band_sweep_kernel"] = dict(
-        max_abs_err=err3, ms=ms3, plain_ms=plain3, bound_ms=b3[0],
-        bound_by=b3[1], library_ms=None, int_mm_ms=mm3,
-        path="ld_scan (pass 2)",
-        shape=f"{nb3} hit blocks of {BLOCK}x{BLOCK}, W={W}, outs=cab")
-    log(f"K3 ld_band_sweep_kernel: {ms3:.3f} ms, plain {plain3:.3f} ms, "
-        f"bound {b3[0]:.3f} ms ({b3[1]}), torch._int_mm {mm3:.3f} ms "
-        f"({nb3} blocks), max abs err {err3:.3g}")
-    del res
+    kw3 = dict(outs=("cab",), sel=0, block_m=BLOCK, block_n=BLOCK)
+    cab = {}
+    for name, res, site, plain in (
+            ("ld_band_sweep_kernel", rd, lk.ld_band_sweep_blocks,
+             lk.ld_band_sweep_blocks_plain),
+            ("ld_band_sweep_kernel<FORM_BITS>", rp,
+             lk.ld_band_sweep_blocks_packed,
+             lk.ld_band_sweep_blocks_packed_plain)):
+        args3 = (res.g, res.g, res.c1, res.c1, res.ipq, res.ipq, hit_cij,
+                 N_HAP)
+        cab[name] = site(*args3, **kw3)["cab"]
+        ref = plain(*args3, **kw3)
+        check(torch.equal(cab[name], ref["cab"]),
+              f"{name} main-path cab differs")
+        del ref
+        ms = cuda_ms(lambda: site(*args3, **kw3), reps=5)
+        plain_ms = cuda_ms(lambda: plain(*args3, **kw3), reps=1)
+        b = bound(2 * nb3 * BLOCK * BLOCK * N_HAP,
+                  rows3 * BLOCK * (res.g.shape[1] + 8) + 4 * nb3
+                  + 4 * nb3 * BLOCK * BLOCK)
+        results[name].update(
+            ms=ms, plain_ms=plain_ms, bound_ms=b[0], bound_by=b[1],
+            library_ms=None, int_mm_ms=mm3, path="ld_scan (pass 2)",
+            shape=f"{nb3} hit blocks of {BLOCK}x{BLOCK}, "
+                  f"W={res.g.shape[1]} {'bytes' if res.packed else 'int8'}, "
+                  "outs=cab")
+        log(f"{KERNELS[name][0]} {name}: {ms:.3f} ms, plain {plain_ms:.3f} "
+            f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm3:.3f} ms "
+            f"({nb3} blocks), max abs err {results[name]['max_abs_err']:.3g}")
+    check(torch.equal(cab["ld_band_sweep_kernel"],
+                      cab["ld_band_sweep_kernel<FORM_BITS>"]),
+          "K4 main-path cab differs from K3's")
+    del rd, rp, cab, counts
     torch.cuda.empty_cache()
 
 
 def _run_scan(data_dir, out_dir, extra=()):
     from ld_tools_tpu_torch import ld_scan
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
 
     argv = ["-C", "21", "-D", data_dir, "-t", out_dir, "-z", "0.8",
             "-E", "cuda", *extra]
+    lk.reset_launches()
     t0 = time.perf_counter()
     (report,) = ld_scan.main(argv)
-    return report, time.perf_counter() - t0
+    secs = time.perf_counter() - t0
+    launches = {KERNEL_OF_SITE[fn.__name__]: fn.launches
+                for fn in lk.LAUNCH_SITES}
+    return report, secs, launches
+
+
+def _log_scan(tag, report, secs, launches):
+    st = report.stats
+    phases = ("host_prep_s", "upload_s", "count_s", "fetch_s", "finish_s",
+              "write_s")
+    # the rest: data prep checks, the store's load, the cohort columns
+    st["rest_s"] = secs - sum(st[k] for k in phases)
+    ran = {KERNELS[k][0]: n for k, n in launches.items() if n}
+    log(f"scan ({tag}): {report.n_hits} hits in {secs:.2f}s; phases "
+        + " ".join(f"{k}={st[k]:.3f}" for k in phases + ("rest_s",))
+        + f"; blocks {st['blocks']}, hit blocks {st['hit_blocks']}, "
+        f"resident {'packed' if st['resident_packed'] else 'int8'} "
+        f"{st['resident_bytes'] / 1e6:.1f} MB, resident hit "
+        f"{st['resident_hit']:.0f}; launches {ran}")
+    check(st["blocks_checked"] == st["hit_blocks"],
+          "pass 2 did not check every hit block against pass 1")
+
+
+def _check_layout_launches(tag, launches, packed):
+    """The run launched the count and sweep kernels of its layout only."""
+    want = ("<FORM_BITS>" if packed else "")
+    for kind in ("ld_band_count_kernel", "ld_band_sweep_kernel"):
+        mine, other = kind + want, kind + ("" if packed else "<FORM_BITS>")
+        check(launches[mine] > 0, f"scan ({tag}) never launched {mine}")
+        check(launches[other] == 0,
+              f"scan ({tag}) launched {other} {launches[other]} times")
 
 
 def _recount(gp, i, j):
@@ -445,70 +681,66 @@ def _recount(gp, i, j):
             format_rounded(ex.d_prime, ex.d_prime_is_int_zero), r2_round)
 
 
-def phase_scan(work, gp, pos, results):
-    from ld_tools_tpu_torch.ops import ld_kernels as lk
-
+def _check_hits(tag, path, gp, pos, run, max_dist, seed):
+    """A scan TSV against an f64 recount: plausible count, i > j, no
+    duplicates, sampled hits' strings, and sampled pairs (inside a run,
+    nearby, anywhere) are hits exactly when their rounded f64 r^2 >= 0.8
+    (and they lie in the window).  Returns the TSV's columns."""
     v = gp.shape[0]
-    data = os.path.join(work, "chr21")
-    write_store(data, "21", gp, pos, seed=21)
-    runs = {}
-    for tag, extra in (("full", ()), ("window", ("-w", "1000000"))):
-        out = os.path.join(work, f"out_{tag}")
-        lk.reset_launches()
-        report, secs = _run_scan(data, out, extra)
-        launches = {fn.__name__: fn.launches for fn in lk.LAUNCH_SITES}
-        st = report.stats
-        phases = ("host_prep_s", "upload_s", "count_s", "fetch_s",
-                  "finish_s", "write_s")
-        # the rest: data prep checks, the store's load, the cohort columns
-        st["rest_s"] = secs - sum(st[k] for k in phases)
-        log(f"scan ({tag}): {report.n_hits} hits in {secs:.2f}s; phases "
-            + " ".join(f"{k}={st[k]:.3f}" for k in phases + ("rest_s",))
-            + f"; blocks {st['blocks']}, hit blocks {st['hit_blocks']}, "
-            f"resident hit {st['resident_hit']:.0f}; launches {launches}")
-        check(launches["ld_band_count"] > 0, "the scan never launched K5")
-        check(launches["ld_band_sweep_blocks"] > 0,
-              "the scan never launched K3")
-        check(st["blocks_checked"] == st["hit_blocks"],
-              "pass 2 did not check every hit block against pass 1")
-        runs[tag] = (report, secs, launches)
-    full, _, launches = runs["full"]
-    results["ld_band_count_kernel"]["launches"] = launches["ld_band_count"]
-    results["ld_band_sweep_kernel"]["launches"] = (
-        launches["ld_band_sweep_blocks"])
-
-    i, j, r2s, dps = read_tsv(full.path, pos)
-    # every pair inside a 64-row block of identical base rows is a
-    # candidate; nothing else can reach r^2 = 0.8
-    within = (v // 64) * 64 * 63 // 2
+    i, j, r2s, dps = read_tsv(path, pos)
+    # every pair inside a run of identical base rows is a candidate;
+    # nothing else can reach r^2 = 0.8
+    within = (v // run) * run * (run - 1) // 2
     check(0.2 * within <= len(i) <= within,
-          f"{len(i)} hits is implausible for {within} correlated pairs")
-    check(bool(np.all(i > j)), "hits must have i > j")
+          f"{tag}: {len(i)} hits is implausible for {within} correlated pairs")
+    check(bool(np.all(i > j)), f"{tag}: hits must have i > j")
     key = np.sort(i * v + j)
-    check(bool(np.all(np.diff(key) > 0)), "duplicate hits")
-    rng = np.random.default_rng(1)
+    check(bool(np.all(np.diff(key) > 0)), f"{tag}: duplicate hits")
+    rng = np.random.default_rng(seed)
     pick = rng.choice(len(i), size=min(3000, len(i)), replace=False)
     want_r2, want_dp, _ = _recount(gp, i[pick], j[pick])
-    check(np.array_equal(want_r2, r2s[pick]), "sampled hit r^2 strings")
-    check(np.array_equal(want_dp, dps[pick]), "sampled hit D' strings")
-    # sampled pairs in general: inside a 64-block, neighbouring blocks,
-    # anywhere; each is a hit exactly when its rounded f64 r^2 >= 0.8
+    check(np.array_equal(want_r2, r2s[pick]), f"{tag}: sampled hit r^2")
+    check(np.array_equal(want_dp, dps[pick]), f"{tag}: sampled hit D'")
     a = rng.integers(1, v, size=9000)
     b = np.concatenate([
-        a[:3000] - rng.integers(1, 64, size=3000),
+        a[:3000] - rng.integers(1, run, size=3000),
         a[3000:6000] - rng.integers(1, 256, size=3000),
         rng.integers(0, v, size=3000),
     ])
     ok = (b >= 0) & (b < a)
     a, b = a[ok], b[ok]
     _, _, r2_round = _recount(gp, a, b)
+    want = r2_round >= 0.8
+    if max_dist is not None:
+        want &= np.abs(pos[a] - pos[b]) <= max_dist
     is_hit = np.isin(a * v + b, key)
-    check(np.array_equal(is_hit, r2_round >= 0.8),
-          f"sampled pairs: {int((is_hit != (r2_round >= 0.8)).sum())} of "
-          f"{len(a)} disagree with the f64 recount")
-    log(f"scan check: {len(pick)} hits and {len(a)} pairs "
+    check(np.array_equal(is_hit, want),
+          f"{tag}: sampled pairs: {int((is_hit != want).sum())} of {len(a)} "
+          "disagree with the f64 recount")
+    log(f"scan check ({tag}): {len(pick)} hits and {len(a)} pairs "
         f"({int(is_hit.sum())} hits among them) agree with the f64 recount")
+    return i, j, r2s, dps
 
+
+def phase_scan(work, gp, pos, results):
+    """The chr21-scale store in both layouts, then the slice at full size."""
+    v = gp.shape[0]
+    data = os.path.join(work, "chr21")
+    write_store(data, "21", gp, pos, seed=21)
+    runs = {}
+    for tag, extra in (("full", ()), ("window", ("-w", "1000000"))):
+        report, secs, launches = _run_scan(
+            data, os.path.join(work, f"out_{tag}"), extra)
+        _log_scan(tag, report, secs, launches)
+        check(report.stats["resident_packed"] == 0.0,
+              f"scan ({tag}): auto must inflate at chr21 scale")
+        _check_layout_launches(tag, launches, packed=False)
+        runs[tag] = (report, secs, launches)
+    for name in ("ld_band_count_kernel", "ld_band_sweep_kernel"):
+        results[name]["launches"] = runs["full"][2][name]
+
+    i, j, r2s, dps = _check_hits("full", runs["full"][0].path, gp, pos, 64,
+                                 None, seed=1)
     wi, wj, wr2, wdp = read_tsv(runs["window"][0].path, pos)
     near = np.abs(pos[i] - pos[j]) <= 1_000_000
     check(np.array_equal(wi, i[near]) and np.array_equal(wj, j[near])
@@ -516,31 +748,88 @@ def phase_scan(work, gp, pos, results):
           "the -w 1000000 hits are not the full hits within 1 Mb")
     log(f"scan check: -w 1000000 gives exactly the {len(wi)} full-scan hits "
         f"within 1 Mb")
+
+    # (a) the same store under the packed layout: the same bytes out
+    os.environ[LIMIT] = "0"
+    try:
+        report, secs, launches = _run_scan(data, os.path.join(work, "out_pk"))
+    finally:
+        del os.environ[LIMIT]
+    _log_scan("full, packed", report, secs, launches)
+    check(report.stats["resident_packed"] == 1.0,
+          f"{LIMIT}=0 must keep the bytes packed")
+    _check_layout_launches("full, packed", launches, packed=True)
+    with open(report.path, "rb") as fa, open(runs["full"][0].path, "rb") as fb:
+        check(fa.read() == fb.read(),
+              "the packed layout's TSV differs from the int8 layout's")
+    log("scan check: the packed layout's TSV is byte-identical to the int8 "
+        "layout's")
+    runs["full_packed"] = (report, secs, launches)
+    shutil.rmtree(data, ignore_errors=True)
+
+    # (b) the slice at full size, at the default limit
+    t0 = time.perf_counter()
+    gpf, posf = scan_dataset(N_VARIANTS_FULL, seed=22, run=RUN_FULL)
+    data = os.path.join(work, "chr_full")
+    write_store(data, "21", gpf, posf, seed=22)
+    setup_s = time.perf_counter() - t0
+    log(f"data: {gpf.shape[0]} variants x {N_HAP} haplotypes, runs of "
+        f"{RUN_FULL}, made and written in {setup_s:.1f}s")
+    check(LIMIT not in os.environ, f"{LIMIT} must be unset (default 4 GiB)")
+    report, secs, launches = _run_scan(data, os.path.join(work, "out_full"),
+                                       ("-w", "1000000"))
+    _log_scan("1.1M, window", report, secs, launches)
+    st = report.stats
+    check(st["resident_packed"] == 1.0,
+          "auto must keep a 1.1M-variant chromosome packed")
+    # v_pad: V (a multiple of the 7,680-row chunk) and one chunk more
+    check(st["resident_bytes"] == (N_VARIANTS_FULL + 7680) * W_PACKED,
+          f"resident bytes {st['resident_bytes']}")
+    _check_layout_launches("1.1M, window", launches, packed=True)
+    for name in ("ld_band_count_kernel<FORM_BITS>",
+                 "ld_band_sweep_kernel<FORM_BITS>"):
+        results[name]["launches"] = launches[name]
+        results[name]["path"] += (f", launches from the {N_VARIANTS_FULL}-"
+                                  "variant -w 1000000 scan")
+    _check_hits("1.1M, window", report.path, gpf, posf, RUN_FULL, 1_000_000,
+                seed=2)
+    runs["full_size_window"] = (report, secs, launches)
+    shutil.rmtree(data, ignore_errors=True)
     return {tag: dict(hits=r.n_hits, seconds=s, stats=r.stats,
-                      launches=l) for tag, (r, s, l) in runs.items()}
+                      launches={KERNELS[k][0] + " " + k: n
+                                for k, n in l.items() if n})
+            for tag, (r, s, l) in runs.items()}
 
 
 def phase_parity(work):
-    """-E cuda and -E torch on a 10,240-variant store: identical bytes."""
+    """-E cuda (both layouts) and -E torch on a small store: identical
+    bytes."""
     from ld_tools_tpu_torch import ld_scan
 
-    gp, pos = scan_dataset(10_240, seed=5)
+    gp, pos = scan_dataset(N_PARITY, seed=5)
     data = os.path.join(work, "parity")
     write_store(data, "21", gp, pos, seed=5)
     bodies = {}
-    for engine in ("cuda", "torch"):
-        out = os.path.join(work, f"parity_{engine}")
-        t0 = time.perf_counter()
-        (report,) = ld_scan.main(["-C", "21", "-D", data, "-t", out,
-                                  "-z", "0.8", "-E", engine])
+    for engine, limit in (("cuda", None), ("cuda", "0"), ("torch", None)):
+        tag = engine + (" packed" if limit else "")
+        out = os.path.join(work, f"parity_{engine}_{limit}")
+        if limit is not None:
+            os.environ[LIMIT] = limit
+        try:
+            t0 = time.perf_counter()
+            (report,) = ld_scan.main(["-C", "21", "-D", data, "-t", out,
+                                      "-z", "0.8", "-E", engine])
+        finally:
+            os.environ.pop(LIMIT, None)
         with open(report.path, "rb") as fh:
-            bodies[engine] = fh.read()
-        log(f"parity: -E {engine}: {report.n_hits} hits in "
+            bodies[tag] = fh.read()
+        log(f"parity: -E {tag}: {report.n_hits} hits in "
             f"{time.perf_counter() - t0:.2f}s")
-    check(bodies["cuda"] == bodies["torch"],
+    check(bodies["cuda"] == bodies["torch"] == bodies["cuda packed"],
           "-E cuda and -E torch TSVs differ")
     check(bodies["cuda"].count(b"\n") > 2, "parity TSV holds no hits")
-    log("parity: -E cuda TSV is byte-identical to -E torch")
+    log("parity: the -E cuda TSVs of both layouts are byte-identical to "
+        "-E torch")
 
 
 def main():
@@ -559,6 +848,8 @@ def main():
         print(f"chip_smoke: the port is not beside this script: {exc}",
               file=sys.stderr)
         return 2
+    os.environ.pop(LIMIT, None)  # the scans below run at the default limit
+    torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 plain counts
 
     kind, smi = phase_device()
     build_s = phase_build()
@@ -566,7 +857,9 @@ def main():
     log(f"data: {gp.shape[0]} variants x {N_HAP} haplotypes "
         f"({time.perf_counter() - t_start:.1f}s so far)")
     results = {}
-    phase_kernels(gp, pos, results)
+    phase_triangles(results)
+    phase_ragged(gp, pos, results)
+    phase_scan_shapes(gp, pos, results)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         scan = phase_scan(work, gp, pos, results)
@@ -574,15 +867,17 @@ def main():
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
-    for name in ("ld_triangle_kernel", "ld_band_sweep_kernel",
-                 "ld_band_count_kernel"):
+    for name, (tag, replaces) in KERNELS.items():
         r = results[name]
+        check(r.get("launches", 0) >= 1, f"{name} was never launched on its "
+              "path")
         kernels.append(dict(
-            name=name, route="cuda", source=SOURCE, replaces=REPLACES[name],
-            launches=r.get("launches", 0), max_abs_err=r["max_abs_err"],
-            ms=r["ms"], plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
-            bound_by=r["bound_by"], library_ms=r["library_ms"],
-            int_mm_ms=r["int_mm_ms"], path=r["path"], shape=r["shape"],
+            name=name, tag=tag, route="cuda", source=SOURCE,
+            replaces=replaces, launches=r["launches"],
+            max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
+            bound_ms=r["bound_ms"], bound_by=r["bound_by"],
+            library_ms=r["library_ms"], int_mm_ms=r["int_mm_ms"],
+            path=r["path"], shape=r["shape"],
         ))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"build_s": build_s, "scan": scan}, default=float))

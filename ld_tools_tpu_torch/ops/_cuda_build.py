@@ -42,16 +42,22 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ldk_band_count": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I,
-        _I, _I, _I, _P, _P,
+        _I, _I, _I, _I, _P, _P,
     ),
     "ldk_band_sweep": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-        _I, _P, _P, _P, _P, _P,
+        _I, _I, _P, _P, _P, _P, _P,
     ),
     "ldk_triangle": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _P, _P, _P,
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P,
     ),
 }
+
+# operand forms of the rows (enum Form in csrc/ld_kernels.cu)
+FORM_S8 = 0     # int8 {0,1} haplotypes
+FORM_BITS = 1   # the store's bitpacked bytes, 8 haplotypes per byte
+FORM_BF16 = 2   # int8 rows, bf16 tensor-core products (triangle only)
+FORM_TF32 = 3   # int8 rows, tf32 tensor-core products (triangle only)
 
 
 def _nvcc() -> str:

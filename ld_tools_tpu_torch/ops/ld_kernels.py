@@ -13,26 +13,43 @@ Map to ld_pallas.py (by line):
   _ipq_from_counts    :93    plain, 1/(p*q), 0 when monomorphic
   _apply_epilogue     :108   plain, the triangle tile finish
   _triangle_coords    :364   host numpy
-  ld_triangle_matrix  :509   pads, then ld_triangle_blocks (K1)
+  ld_triangle_matrix  :509   pads, then ld_triangle_blocks (K1) or, for
+                             mxu_dtype bfloat16 / float32, the K1b sites
   unpack_rows_device  :561   plain tensor bit shifts (an XLA op in JAX)
+  ld_triangle_matrix_packed :576  pads the bytes, then K1 over the
+                             inflated rows or K2 over the bytes
   pack_rows           :670   host numpy
   _fast_r2            :722   plain, divide-free r^2
-  ld_band_sweep       :779   grid form of ld_band_sweep_blocks (K3)
+  ld_band_sweep       :779   grid form of ld_band_sweep_blocks (K3) and
+                             ld_band_sweep_blocks_packed (K4)
   exact_keep_mask     :870   plain, integer-exact threshold mask
   block_keep_mask     :980   plain, the count kernel's mask (both passes)
-  ld_band_count       :1014  launches ld_band_count_kernel (K5)
+  ld_band_count       :1014  launches ld_band_count_kernel (K5), or hands
+                             packed rows to ld_band_count_packed (K6)
   pack_block_coords   :1115  host numpy
   ld_band_pallas      :1236  wrapper over ld_band_sweep
+  ld_band_pallas_packed :1268  wrapper over ld_band_sweep(packed=True)
 
-The three launch sites, ``ld_triangle_blocks`` (K1, the
-``_tri_kernel_dense`` grid of ``_ld_triangle_call`` :383),
-``ld_band_sweep_blocks`` (K3, ``_band_sweep_kernel`` :747) and
-``ld_band_count`` (K5, ``_band_count_kernel`` :909), each take a LIST of
-block coordinates, so one launch covers a whole triangle, a whole batch of
-a scan's hit blocks or a whole count pass.  Each has a ``*_plain`` twin.
-The TPU-only machinery of ld_pallas.py (VMEM budgets and their probes,
-the SMEM block cap) has no counterpart; the CUDA kernels tile themselves
-and take any number of blocks.
+The launch sites each take a LIST of block coordinates, so one launch
+covers a whole triangle, a whole batch of a scan's hit blocks or a whole
+count pass, and each has a ``*_plain`` twin:
+
+  ld_triangle_blocks          K1   _tri_kernel_dense, int8 (:259)
+  ld_triangle_blocks_bf16     K1b  _tri_kernel_dense, bf16 dot (:292)
+  ld_triangle_blocks_tf32     K1b  _tri_kernel_dense, f32 dot (:292)
+  ld_triangle_blocks_packed   K2   _tri_kernel_packed (:303)
+  ld_band_sweep_blocks        K3   _band_sweep_kernel, dense (:747)
+  ld_band_sweep_blocks_packed K4   _band_sweep_kernel, packed (:693)
+  ld_band_count               K5   _band_count_kernel, dense (:909)
+  ld_band_count_packed        K6   _band_count_kernel, packed (:949)
+
+The packed sites take the store's bitpacked uint8 rows (8 haplotypes a
+byte, MSB first; padding bits zero).  Their plain versions unpack the
+bit-planes of the rows they gather and run the dense plain count and
+epilogue, so packed and dense plain results are bit-identical.  The
+TPU-only machinery of ld_pallas.py (VMEM budgets and their probes, the
+SMEM block cap) has no counterpart; the CUDA kernels tile themselves and
+take any number of blocks.
 
 The f32 epilogues here run op by op, each product and sum rounded on its
 own; the CUDA kernels are built with -fmad=false to do the same, so the
@@ -65,17 +82,20 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
-def haplotype_counts_int8(g1: torch.Tensor, g2: torch.Tensor) -> torch.Tensor:
+def haplotype_counts_int8(g1: torch.Tensor, g2: torch.Tensor,
+                          via=torch.int8) -> torch.Tensor:
     """Exact int32 alt+alt co-occurrence counts ``g1 . g2^T`` over the
     last axis, for {0, 1} operands of any dtype (leading axes batch): the
     plain versions' count, ld_math.haplotype_counts_int8 in JAX.
 
-    The product runs in f32, exact here; TF32 would be exact too (0 and
-    1 are exact in it), so the result does not depend on PyTorch's
-    matmul precision setting.
+    The operands pass through ``via`` (int8, or bfloat16 / float32 for
+    the K1b plain versions, as the TPU kernel casts them) and the
+    product runs in f32, exact here; TF32 would be exact too (0 and 1 are
+    exact in it), so the result does not depend on PyTorch's matmul
+    precision setting.
     """
-    a = g1.to(torch.int8).to(torch.float32)
-    b = g2.to(torch.int8).to(torch.float32)
+    a = g1.to(torch.int8).to(via).to(torch.float32)
+    b = g2.to(torch.int8).to(via).to(torch.float32)
     return torch.matmul(a, b.transpose(-1, -2)).to(torch.int32)
 
 
@@ -105,11 +125,14 @@ def _stream_ptr(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
 
 
-def _check_matrix(g: torch.Tensor, name: str) -> None:
-    """int8, 2-D, contiguous, rows a multiple of 16 bytes from a 16-byte
-    aligned start: the kernels copy 16-byte chunks (cp.async)."""
-    if g.dtype != torch.int8:
-        raise TypeError(f"{name} must be int8 {{0,1}}, got {g.dtype}")
+def _check_matrix(g: torch.Tensor, name: str, packed: bool = False) -> None:
+    """int8 {0,1} (or, packed, uint8 bytes), 2-D, contiguous, rows a
+    multiple of 16 bytes from a 16-byte aligned start: the kernels copy
+    16-byte chunks (cp.async)."""
+    want = torch.uint8 if packed else torch.int8
+    if g.dtype != want:
+        what = "uint8 bitpacked bytes" if packed else "int8 {0,1}"
+        raise TypeError(f"{name} must be {what}, got {g.dtype}")
     if g.dim() != 2 or not g.is_contiguous():
         raise ValueError(f"{name} must be a contiguous 2-D matrix")
     if g.shape[1] % 16 or g.data_ptr() % 16:
@@ -247,7 +270,8 @@ def pack_rows(G) -> np.ndarray:
 
 
 def unpack_rows_device(gp: torch.Tensor) -> torch.Tensor:
-    """(V, B) uint8 bitpacked rows -> (V, 8B) int8 {0,1}, on gp's device.
+    """(..., B) uint8 bitpacked rows -> (..., 8B) int8 {0,1}, on gp's
+    device (leading axes batch).
 
     MSB-first bit order, matching np.packbits / ingest/pack.py.  Plain
     tensor shifts: one pass over the packed bytes."""
@@ -255,7 +279,19 @@ def unpack_rows_device(gp: torch.Tensor) -> torch.Tensor:
         raise TypeError(f"packed rows must be uint8, got {gp.dtype}")
     shifts = torch.arange(7, -1, -1, dtype=torch.uint8, device=gp.device)
     bits = (gp.unsqueeze(-1) >> shifts) & 1
-    return bits.reshape(gp.shape[0], gp.shape[1] * 8).to(torch.int8)
+    return bits.reshape(*gp.shape[:-1], gp.shape[-1] * 8).to(torch.int8)
+
+
+_POPCOUNT8 = torch.tensor([bin(b).count("1") for b in range(256)],
+                          dtype=torch.int32)
+
+
+def popcount_rows(gp: torch.Tensor) -> torch.Tensor:
+    """(V,) f32 set-bit counts of (V, B) uint8 bitpacked rows: the alt
+    counts of the unpacked rows (padding bits are zero), as JAX takes
+    them with lax.population_count."""
+    table = _POPCOUNT8.to(gp.device)
+    return table[gp.to(torch.int64)].sum(dim=1).to(torch.float32)
 
 
 def pack_block_coords(bi, bj) -> np.ndarray:
@@ -293,13 +329,20 @@ def _gather_rows(x: torch.Tensor, rows: torch.Tensor, valid: torch.Tensor):
     return out * valid.reshape(shape).to(out.dtype)
 
 
+def _gather_operand(g, rows, valid, packed):
+    """Rows of g gathered per block (nb, size, W); packed bytes come out
+    as their unpacked int8 bit-planes (nb, size, 8W)."""
+    out = _gather_rows(g, rows, valid)
+    return unpack_rows_device(out) if packed else out
+
+
 def _block_outputs_plain(ga, gb, c1a, c1b, ipqa, ipqb, bi, bj, n_hap, *,
-                         outs, sel, block_m, block_n):
+                         outs, sel, block_m, block_n, packed=False):
     """Plain band sweep over one chunk of blocks: {name: (nb, bm, bn)}."""
     ra, va = _block_index(bi, block_m, ga.shape[0])
     rb, vb = _block_index(bj, block_n, gb.shape[0])
-    cab = haplotype_counts_int8(_gather_rows(ga, ra, va),
-                                _gather_rows(gb, rb, vb))
+    cab = haplotype_counts_int8(_gather_operand(ga, ra, va, packed),
+                                _gather_operand(gb, rb, vb, packed))
     c1r = _gather_rows(c1a, ra, va)[:, :, None]
     c1c = _gather_rows(c1b, rb, vb)[:, None, :]
     n_f, inv_n = _f32_inv(n_hap)
@@ -367,9 +410,8 @@ def _chunks(n: int):
 # tensor it returns its ``*_plain`` twin, which also runs on CUDA tensors
 # when called by name (chip_smoke.py holds each kernel against it there).
 
-
 def _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n, epilogue,
-                   want_dprime):
+                   want_dprime, packed=False):
     if epilogue not in ("fast", "exact"):
         raise ValueError(f"unknown epilogue {epilogue!r}")
     if epilogue == "fast" and want_dprime:
@@ -377,18 +419,17 @@ def _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n, epilogue,
                          "use want_dprime=False")
     if block_m != block_n:
         raise ValueError("the triangle walk needs square blocks")
-    _check_matrix(g_pad, "g_pad")
+    _check_matrix(g_pad, "g_pad", packed)
     v = g_pad.shape[0]
     return (_vec(c1, v, torch.float32, "c1"), _vec(ipq, v, torch.float32, "ipq"),
             _vec(cij, cij.numel(), torch.int32, "cij"))
 
 
-def ld_triangle_blocks_plain(g_pad, c1, ipq, cij, n_haplotypes, *,
-                             block_m, block_n, epilogue="exact",
-                             want_dprime=True):
-    """Plain version of :func:`ld_triangle_blocks` on g_pad's device."""
+def _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
+                    block_n, epilogue, want_dprime, packed=False,
+                    via=torch.int8):
     c1, ipq, cij = _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n,
-                                  epilogue, want_dprime)
+                                  epilogue, want_dprime, packed)
     v = g_pad.shape[0]
     dev = g_pad.device
     r2 = torch.zeros((v, v), dtype=torch.float32, device=dev)
@@ -398,8 +439,9 @@ def ld_triangle_blocks_plain(g_pad, c1, ipq, cij, n_haplotypes, *,
         bi, bj = bi_all[lo:hi], bj_all[lo:hi]
         ra, va = _block_index(bi, block_m, v)
         rb, vb = _block_index(bj, block_n, v)
-        cab = haplotype_counts_int8(_gather_rows(g_pad, ra, va),
-                                    _gather_rows(g_pad, rb, vb))
+        cab = haplotype_counts_int8(_gather_operand(g_pad, ra, va, packed),
+                                    _gather_operand(g_pad, rb, vb, packed),
+                                    via)
         r2b, dpb = _apply_epilogue(
             cab, n_haplotypes, _gather_rows(c1, ra, va)[:, :, None],
             _gather_rows(c1, rb, vb)[:, None, :],
@@ -415,21 +457,13 @@ def ld_triangle_blocks_plain(g_pad, c1, ipq, cij, n_haplotypes, *,
     return r2, dp
 
 
-def ld_triangle_blocks(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
-                       block_n, epilogue="exact", want_dprime=True,
-                       out=None):
-    """Launch site of ld_triangle_kernel (K1): r^2 (and D') of the listed
-    blocks of the (V, V) matrix, 0 elsewhere.  ``cij[k] = bi * 2^16 +
-    bj``; ``g_pad`` is int8 {0,1} (V, W) with W a multiple of 16, c1/ipq
-    its f32 alt counts and 1/(p*q).  ``out=(r2, dp or None)`` reuses
-    (V, V) f32 buffers: only the listed blocks are written, the rest is
-    left as it was."""
-    if not _on_card(g_pad, c1, ipq, cij):
-        return ld_triangle_blocks_plain(
-            g_pad, c1, ipq, cij, n_haplotypes, block_m=block_m,
-            block_n=block_n, epilogue=epilogue, want_dprime=want_dprime)
+def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
+                     block_m, block_n, epilogue, want_dprime, out):
+    """Launch ld_triangle_kernel<form> over the blocks ``cij``; bumps
+    ``site.launches``."""
     c1, ipq, cij = _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n,
-                                  epilogue, want_dprime)
+                                  epilogue, want_dprime,
+                                  form == _cuda_build.FORM_BITS)
     v, w = g_pad.shape
     if out is None:
         r2 = torch.zeros((v, v), dtype=torch.float32, device=g_pad.device)
@@ -448,31 +482,168 @@ def ld_triangle_blocks(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
         err = _cuda_build.lib().ldk_triangle(
             g_pad.data_ptr(), c1.data_ptr(), ipq.data_ptr(), cij.data_ptr(),
             cij.shape[0], v, w, block_m, block_n, n_f, inv_n,
-            int(epilogue == "fast"), r2.data_ptr(),
+            int(epilogue == "fast"), form, r2.data_ptr(),
             dp.data_ptr() if dp is not None else None, _stream_ptr(g_pad),
         )
-        _cuda_build.check(err, "ld_triangle_kernel")
-        ld_triangle_blocks.launches += 1
+        _cuda_build.check(err, f"ld_triangle_kernel (form {form})")
+        site.launches += 1
     return r2, dp
+
+
+def ld_triangle_blocks_plain(g_pad, c1, ipq, cij, n_haplotypes, *,
+                             block_m, block_n, epilogue="exact",
+                             want_dprime=True):
+    """Plain version of :func:`ld_triangle_blocks` on g_pad's device."""
+    return _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes,
+                           block_m=block_m, block_n=block_n,
+                           epilogue=epilogue, want_dprime=want_dprime)
+
+
+def ld_triangle_blocks(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
+                       block_n, epilogue="exact", want_dprime=True,
+                       out=None):
+    """Launch site of ld_triangle_kernel (K1): r^2 (and D') of the listed
+    blocks of the (V, V) matrix, 0 elsewhere.  ``cij[k] = bi * 2^16 +
+    bj``; ``g_pad`` is int8 {0,1} (V, W) with W a multiple of 16, c1/ipq
+    its f32 alt counts and 1/(p*q).  ``out=(r2, dp or None)`` reuses
+    (V, V) f32 buffers: only the listed blocks are written, the rest is
+    left as it was."""
+    kw = dict(block_m=block_m, block_n=block_n, epilogue=epilogue,
+              want_dprime=want_dprime)
+    if not _on_card(g_pad, c1, ipq, cij):
+        return ld_triangle_blocks_plain(g_pad, c1, ipq, cij, n_haplotypes,
+                                        **kw)
+    return _triangle_launch(ld_triangle_blocks, _cuda_build.FORM_S8, g_pad,
+                            c1, ipq, cij, n_haplotypes, out=out, **kw)
 
 
 ld_triangle_blocks.launches = 0
 
 
-def ld_band_sweep_blocks_plain(g_rows, g_cols, c1_rows, c1_cols, ipq_rows,
-                               ipq_cols, cij, n_haplotypes, *,
-                               outs=("meas",), sel=0, block_m=640,
-                               block_n=640):
-    """Plain version of :func:`ld_band_sweep_blocks` on g_rows' device."""
+def ld_triangle_blocks_bf16_plain(g_pad, c1, ipq, cij, n_haplotypes, *,
+                                  block_m, block_n, epilogue="exact",
+                                  want_dprime=True):
+    """Plain version of :func:`ld_triangle_blocks_bf16`: the operands
+    cast to bf16, f32 products and sums."""
+    return _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes,
+                           block_m=block_m, block_n=block_n,
+                           epilogue=epilogue, want_dprime=want_dprime,
+                           via=torch.bfloat16)
+
+
+def ld_triangle_blocks_bf16(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
+                            block_n, epilogue="exact", want_dprime=True,
+                            out=None):
+    """Launch site of ld_triangle_kernel<FORM_BF16> (K1b, the bf16 dot of
+    _tri_kernel_dense): :func:`ld_triangle_blocks` with the int8 rows
+    converted to bf16 in the kernel, bf16 tensor-core products summed in
+    f32.  Counts are exact, so r^2 / D' equal K1's bit for bit."""
+    kw = dict(block_m=block_m, block_n=block_n, epilogue=epilogue,
+              want_dprime=want_dprime)
+    if not _on_card(g_pad, c1, ipq, cij):
+        return ld_triangle_blocks_bf16_plain(g_pad, c1, ipq, cij,
+                                             n_haplotypes, **kw)
+    return _triangle_launch(ld_triangle_blocks_bf16, _cuda_build.FORM_BF16,
+                            g_pad, c1, ipq, cij, n_haplotypes, out=out, **kw)
+
+
+ld_triangle_blocks_bf16.launches = 0
+
+
+def ld_triangle_blocks_tf32_plain(g_pad, c1, ipq, cij, n_haplotypes, *,
+                                  block_m, block_n, epilogue="exact",
+                                  want_dprime=True):
+    """Plain version of :func:`ld_triangle_blocks_tf32`: the operands
+    cast to f32, f32 products and sums."""
+    return _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes,
+                           block_m=block_m, block_n=block_n,
+                           epilogue=epilogue, want_dprime=want_dprime,
+                           via=torch.float32)
+
+
+def ld_triangle_blocks_tf32(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
+                            block_n, epilogue="exact", want_dprime=True,
+                            out=None):
+    """Launch site of ld_triangle_kernel<FORM_TF32> (K1b, the f32 dot of
+    _tri_kernel_dense): :func:`ld_triangle_blocks` with the int8 rows
+    converted to f32 in the kernel and multiplied on the TF32 tensor
+    cores (0/1 are exact in TF32), summed in f32."""
+    kw = dict(block_m=block_m, block_n=block_n, epilogue=epilogue,
+              want_dprime=want_dprime)
+    if not _on_card(g_pad, c1, ipq, cij):
+        return ld_triangle_blocks_tf32_plain(g_pad, c1, ipq, cij,
+                                             n_haplotypes, **kw)
+    return _triangle_launch(ld_triangle_blocks_tf32, _cuda_build.FORM_TF32,
+                            g_pad, c1, ipq, cij, n_haplotypes, out=out, **kw)
+
+
+ld_triangle_blocks_tf32.launches = 0
+
+
+def ld_triangle_blocks_packed_plain(gp_pad, c1, ipq, cij, n_haplotypes, *,
+                                    block_m, block_n, epilogue="exact",
+                                    want_dprime=True):
+    """Plain version of :func:`ld_triangle_blocks_packed`: each gathered
+    block's bytes unpacked to int8 bit-planes, then the dense plain count
+    and epilogue."""
+    return _triangle_plain(gp_pad, c1, ipq, cij, n_haplotypes,
+                           block_m=block_m, block_n=block_n,
+                           epilogue=epilogue, want_dprime=want_dprime,
+                           packed=True)
+
+
+def ld_triangle_blocks_packed(gp_pad, c1, ipq, cij, n_haplotypes, *,
+                              block_m, block_n, epilogue="exact",
+                              want_dprime=True, out=None):
+    """Launch site of ld_triangle_kernel<FORM_BITS> (K2,
+    _tri_kernel_packed): :func:`ld_triangle_blocks` over the store's
+    bitpacked uint8 (V, W) rows, W bytes a multiple of 16, the bit-planes
+    unpacked inside the kernel.  The same counts as K1 on the unpacked
+    rows, so the same r^2 / D' bit for bit."""
+    kw = dict(block_m=block_m, block_n=block_n, epilogue=epilogue,
+              want_dprime=want_dprime)
+    if not _on_card(gp_pad, c1, ipq, cij):
+        return ld_triangle_blocks_packed_plain(gp_pad, c1, ipq, cij,
+                                               n_haplotypes, **kw)
+    return _triangle_launch(ld_triangle_blocks_packed,
+                            _cuda_build.FORM_BITS, gp_pad, c1, ipq, cij,
+                            n_haplotypes, out=out, **kw)
+
+
+ld_triangle_blocks_packed.launches = 0
+
+
+def _band_prep(g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij,
+               outs, sel, packed=False):
+    for o in outs:
+        if o not in BAND_OUT_DTYPES:
+            raise ValueError(f"unknown band output {o!r}")
+    if sel not in (0, 1):
+        raise ValueError(f"sel must be 0 or 1, got {sel}")
+    _check_matrix(g_rows, "g_rows", packed)
+    _check_matrix(g_cols, "g_cols", packed)
+    if g_rows.shape[1] != g_cols.shape[1]:
+        raise ValueError("g_rows and g_cols differ in width")
+    vr, va = g_rows.shape[0], g_cols.shape[0]
+    return (_vec(c1_rows, vr, torch.float32, "c1_rows"),
+            _vec(c1_cols, va, torch.float32, "c1_cols"),
+            _vec(ipq_rows, vr, torch.float32, "ipq_rows"),
+            _vec(ipq_cols, va, torch.float32, "ipq_cols"),
+            _vec(cij, cij.numel(), torch.int32, "cij"))
+
+
+def _band_sweep_plain(g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols,
+                      cij, n_haplotypes, *, outs, sel, block_m, block_n,
+                      packed):
     c1_rows, c1_cols, ipq_rows, ipq_cols, cij = _band_prep(
         g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij, outs,
-        sel)
+        sel, packed)
     bi, bj = _unpack_coords(cij)
     parts = [
         _block_outputs_plain(
             g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols,
             bi[lo:hi], bj[lo:hi], n_haplotypes, outs=outs, sel=sel,
-            block_m=block_m, block_n=block_n,
+            block_m=block_m, block_n=block_n, packed=packed,
         )
         for lo, hi in _chunks(cij.shape[0])
     ]
@@ -484,23 +655,45 @@ def ld_band_sweep_blocks_plain(g_rows, g_cols, c1_rows, c1_cols, ipq_rows,
     }
 
 
-def _band_prep(g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij,
-               outs, sel):
-    for o in outs:
-        if o not in BAND_OUT_DTYPES:
-            raise ValueError(f"unknown band output {o!r}")
-    if sel not in (0, 1):
-        raise ValueError(f"sel must be 0 or 1, got {sel}")
-    _check_matrix(g_rows, "g_rows")
-    _check_matrix(g_cols, "g_cols")
-    if g_rows.shape[1] != g_cols.shape[1]:
-        raise ValueError("g_rows and g_cols differ in width")
-    vr, va = g_rows.shape[0], g_cols.shape[0]
-    return (_vec(c1_rows, vr, torch.float32, "c1_rows"),
-            _vec(c1_cols, va, torch.float32, "c1_cols"),
-            _vec(ipq_rows, vr, torch.float32, "ipq_rows"),
-            _vec(ipq_cols, va, torch.float32, "ipq_cols"),
-            _vec(cij, cij.numel(), torch.int32, "cij"))
+def _band_sweep_launch(site, form, g_rows, g_cols, c1_rows, c1_cols,
+                       ipq_rows, ipq_cols, cij, n_haplotypes, *, outs, sel,
+                       block_m, block_n):
+    """Launch ld_band_sweep_kernel<form> over the blocks ``cij``; bumps
+    ``site.launches``."""
+    c1_rows, c1_cols, ipq_rows, ipq_cols, cij = _band_prep(
+        g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij, outs,
+        sel, form == _cuda_build.FORM_BITS)
+    nb = cij.shape[0]
+    out = {o: torch.empty((nb, block_m, block_n), dtype=BAND_OUT_DTYPES[o],
+                          device=g_rows.device)
+           for o in outs}
+    if nb == 0:
+        return out
+    _check_grid(nb, block_m, block_n)
+    n_f, inv_n = _f32_inv(n_haplotypes)
+    ptr = {o: (out[o].data_ptr() if o in out else None)
+           for o in BAND_OUT_DTYPES}
+    err = _cuda_build.lib().ldk_band_sweep(
+        g_rows.data_ptr(), g_cols.data_ptr(), c1_rows.data_ptr(),
+        c1_cols.data_ptr(), ipq_rows.data_ptr(), ipq_cols.data_ptr(),
+        cij.data_ptr(), nb, g_rows.shape[0], g_cols.shape[0],
+        g_rows.shape[1], block_m, block_n, n_f, inv_n, sel, form,
+        ptr["cab"], ptr["r2"], ptr["dp"], ptr["meas"], _stream_ptr(g_rows),
+    )
+    _cuda_build.check(err, f"ld_band_sweep_kernel (form {form})")
+    site.launches += 1
+    return out
+
+
+def ld_band_sweep_blocks_plain(g_rows, g_cols, c1_rows, c1_cols, ipq_rows,
+                               ipq_cols, cij, n_haplotypes, *,
+                               outs=("meas",), sel=0, block_m=640,
+                               block_n=640):
+    """Plain version of :func:`ld_band_sweep_blocks` on g_rows' device."""
+    return _band_sweep_plain(
+        g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij,
+        n_haplotypes, outs=outs, sel=sel, block_m=block_m, block_n=block_n,
+        packed=False)
 
 
 def ld_band_sweep_blocks(
@@ -516,44 +709,56 @@ def ld_band_sweep_blocks(
     subset of ``BAND_OUT_DTYPES``.  This is the launch site of
     ld_band_sweep_kernel (K3).
     """
-    if not _on_card(g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols,
-                    cij):
-        return ld_band_sweep_blocks_plain(
-            g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij,
-            n_haplotypes, outs=outs, sel=sel, block_m=block_m,
-            block_n=block_n)
-    c1_rows, c1_cols, ipq_rows, ipq_cols, cij = _band_prep(
-        g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij, outs,
-        sel)
-    nb = cij.shape[0]
-    out = {o: torch.empty((nb, block_m, block_n), dtype=BAND_OUT_DTYPES[o],
-                          device=g_rows.device)
-           for o in outs}
-    if nb == 0:
-        return out
-    _check_grid(nb, block_m, block_n)
-    n_f, inv_n = _f32_inv(n_haplotypes)
-    ptr = {o: (out[o].data_ptr() if o in out else None)
-           for o in BAND_OUT_DTYPES}
-    err = _cuda_build.lib().ldk_band_sweep(
-        g_rows.data_ptr(), g_cols.data_ptr(), c1_rows.data_ptr(),
-        c1_cols.data_ptr(), ipq_rows.data_ptr(), ipq_cols.data_ptr(),
-        cij.data_ptr(), nb, g_rows.shape[0], g_cols.shape[0],
-        g_rows.shape[1], block_m, block_n, n_f, inv_n, sel, ptr["cab"],
-        ptr["r2"], ptr["dp"], ptr["meas"], _stream_ptr(g_rows),
-    )
-    _cuda_build.check(err, "ld_band_sweep_kernel")
-    ld_band_sweep_blocks.launches += 1
-    return out
+    kw = dict(outs=outs, sel=sel, block_m=block_m, block_n=block_n)
+    args = (g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij)
+    if not _on_card(*args):
+        return ld_band_sweep_blocks_plain(*args, n_haplotypes, **kw)
+    return _band_sweep_launch(ld_band_sweep_blocks, _cuda_build.FORM_S8,
+                              *args, n_haplotypes, **kw)
 
 
 ld_band_sweep_blocks.launches = 0
 
 
-def _count_prep(g, c1, ipq, pos, cij, sel):
+def ld_band_sweep_blocks_packed_plain(gp_rows, gp_cols, c1_rows, c1_cols,
+                                      ipq_rows, ipq_cols, cij,
+                                      n_haplotypes, *, outs=("meas",),
+                                      sel=0, block_m=640, block_n=640):
+    """Plain version of :func:`ld_band_sweep_blocks_packed`: each
+    gathered block's bytes unpacked to int8 bit-planes, then the dense
+    plain count and epilogue."""
+    return _band_sweep_plain(
+        gp_rows, gp_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij,
+        n_haplotypes, outs=outs, sel=sel, block_m=block_m, block_n=block_n,
+        packed=True)
+
+
+def ld_band_sweep_blocks_packed(
+    gp_rows, gp_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij,
+    n_haplotypes, *, outs: tuple = ("meas",), sel: int = 0,
+    block_m: int = 640, block_n: int = 640,
+):
+    """:func:`ld_band_sweep_blocks` over the store's bitpacked uint8 rows
+    (W bytes = 8 W haplotypes, W a multiple of 16): the launch site of
+    ld_band_sweep_kernel<FORM_BITS> (K4), the packed branch of
+    _band_sweep_kernel.  Outputs equal K3's on the unpacked rows bit for
+    bit."""
+    kw = dict(outs=outs, sel=sel, block_m=block_m, block_n=block_n)
+    args = (gp_rows, gp_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij)
+    if not _on_card(*args):
+        return ld_band_sweep_blocks_packed_plain(*args, n_haplotypes, **kw)
+    return _band_sweep_launch(ld_band_sweep_blocks_packed,
+                              _cuda_build.FORM_BITS, *args, n_haplotypes,
+                              **kw)
+
+
+ld_band_sweep_blocks_packed.launches = 0
+
+
+def _count_prep(g, c1, ipq, pos, cij, sel, packed=False):
     if sel not in (0, 1):
         raise ValueError(f"sel must be 0 or 1, got {sel}")
-    _check_matrix(g, "g_dev")
+    _check_matrix(g, "g_dev", packed)
     v = g.shape[0]
     return (_vec(c1, v, torch.float32, "c1_dev"),
             _vec(ipq, v, torch.float32, "ipq_dev"),
@@ -561,12 +766,9 @@ def _count_prep(g, c1, ipq, pos, cij, sel):
             _vec(cij, cij.numel(), torch.int32, "cij"))
 
 
-def ld_band_count_plain(g, c1, ipq, pos, cij, n_hap, max_dist, thres, *,
-                        sel, exact_mask, use_dist, block_m=640,
-                        block_n=640):
-    """Plain version of the count pass (:func:`ld_band_count`) on g's
-    device; ``thres`` is taken as f32."""
-    c1, ipq, pos, cij = _count_prep(g, c1, ipq, pos, cij, sel)
+def _count_plain(g, c1, ipq, pos, cij, n_hap, max_dist, thres, *, sel,
+                 exact_mask, use_dist, block_m, block_n, packed):
+    c1, ipq, pos, cij = _count_prep(g, c1, ipq, pos, cij, sel, packed)
     nb = cij.shape[0]
     out = torch.zeros((nb,), dtype=torch.int32, device=g.device)
     bi, bj = _unpack_coords(cij)
@@ -574,7 +776,7 @@ def ld_band_count_plain(g, c1, ipq, pos, cij, n_hap, max_dist, thres, *,
         vals = _block_outputs_plain(
             g, g, c1, c1, ipq, ipq, bi[lo:hi], bj[lo:hi], n_hap,
             outs=(mask_source(exact_mask),), sel=sel, block_m=block_m,
-            block_n=block_n,
+            block_n=block_n, packed=packed,
         )
         keep = block_keep_mask(
             vals, c1, pos, bi[lo:hi], bj[lo:hi], n_hap, thres, max_dist,
@@ -583,6 +785,57 @@ def ld_band_count_plain(g, c1, ipq, pos, cij, n_hap, max_dist, thres, *,
         )
         out[lo:hi] = keep.reshape(hi - lo, -1).sum(dim=1).to(torch.int32)
     return out
+
+
+def _count_launch(site, form, g, c1, ipq, pos, cij, n_hap, max_dist, thres,
+                  *, sel, exact_mask, use_dist, block_m, block_n):
+    """Launch ld_band_count_kernel<form> over the blocks ``cij``; bumps
+    ``site.launches``."""
+    c1, ipq, pos, cij = _count_prep(g, c1, ipq, pos, cij, sel,
+                                    form == _cuda_build.FORM_BITS)
+    nb = cij.shape[0]
+    # the kernel adds each sub-tile's count into its block's slot
+    out = torch.zeros((nb,), dtype=torch.int32, device=g.device)
+    if nb == 0:
+        return out
+    _check_grid(nb, block_m, block_n)
+    n_f, inv_n = _f32_inv(n_hap)
+    err = _cuda_build.lib().ldk_band_count(
+        g.data_ptr(), c1.data_ptr(), ipq.data_ptr(), pos.data_ptr(),
+        cij.data_ptr(), nb, g.shape[0], g.shape[1], block_m, block_n, n_hap,
+        n_f, inv_n, thres, max_dist if use_dist else 0, sel,
+        int(exact_mask), int(use_dist), form, out.data_ptr(),
+        _stream_ptr(g),
+    )
+    _cuda_build.check(err, f"ld_band_count_kernel (form {form})")
+    site.launches += 1
+    return out
+
+
+def ld_band_count_plain(g, c1, ipq, pos, cij, n_hap, max_dist, thres, *,
+                        sel, exact_mask, use_dist, block_m=640,
+                        block_n=640):
+    """Plain version of the count pass (:func:`ld_band_count`) on g's
+    device; ``thres`` is taken as f32."""
+    return _count_plain(g, c1, ipq, pos, cij, n_hap, max_dist, thres,
+                        sel=sel, exact_mask=exact_mask, use_dist=use_dist,
+                        block_m=block_m, block_n=block_n, packed=False)
+
+
+def ld_band_count_packed_plain(gp, c1, ipq, pos, cij, n_hap, max_dist,
+                               thres, *, sel, exact_mask, use_dist,
+                               block_m=640, block_n=640):
+    """Plain version of :func:`ld_band_count_packed`: each gathered
+    block's bytes unpacked to int8 bit-planes, then the dense plain count
+    and the shared keep mask."""
+    return _count_plain(gp, c1, ipq, pos, cij, n_hap, max_dist, thres,
+                        sel=sel, exact_mask=exact_mask, use_dist=use_dist,
+                        block_m=block_m, block_n=block_n, packed=True)
+
+
+def _count_params(params_i, params_f):
+    n_hap, max_dist = (int(x) for x in params_i)
+    return n_hap, max_dist, float(np.float32(float(params_f[0])))
 
 
 def ld_band_count(
@@ -602,7 +855,9 @@ def ld_band_count(
     block_n: int = 640,
 ):
     """Per-block hit counts for a list of blocks (ld_pallas.ld_band_count);
-    the launch site of ld_band_count_kernel (K5).
+    the launch site of ld_band_count_kernel (K5).  ``packed=True`` takes
+    the store's bitpacked uint8 rows and hands the call to
+    :func:`ld_band_count_packed` (K6).
 
     ``cij[k] = bi * 2^16 + bj``; block k's count of kept pairs (threshold
     ``params_f[0]`` through ``exact_keep_mask`` or the f32 fallback
@@ -611,42 +866,47 @@ def ld_band_count(
     ``params_i = (n_haplotypes, max_dist)`` and ``params_f`` are host
     numbers.
     """
+    args = (g_dev, c1_dev, ipq_dev, pos_dev, cij, params_i, params_f)
+    kw = dict(sel=sel, exact_mask=exact_mask, use_dist=use_dist,
+              block_m=block_m, block_n=block_n)
     if packed:
-        raise NotImplementedError(
-            "the bit-plane count pass over packed bytes (ROADMAP: kernel "
-            "K6) is still to port; pass the dense int8 resident matrix"
-        )
-    n_hap, max_dist = (int(x) for x in params_i)
-    thres = float(np.float32(float(params_f[0])))
+        return ld_band_count_packed(*args, **kw)
+    n_hap, max_dist, thres = _count_params(params_i, params_f)
     if not _on_card(g_dev, c1_dev, ipq_dev, pos_dev, cij):
-        return ld_band_count_plain(
-            g_dev, c1_dev, ipq_dev, pos_dev, cij, n_hap, max_dist, thres,
-            sel=sel, exact_mask=exact_mask, use_dist=use_dist,
-            block_m=block_m, block_n=block_n)
-    c1_dev, ipq_dev, pos_dev, cij = _count_prep(g_dev, c1_dev, ipq_dev,
-                                                pos_dev, cij, sel)
-    nb = cij.shape[0]
-    # the kernel adds each sub-tile's count into its block's slot
-    out = torch.zeros((nb,), dtype=torch.int32, device=g_dev.device)
-    if nb == 0:
-        return out
-    _check_grid(nb, block_m, block_n)
-    n_f, inv_n = _f32_inv(n_hap)
-    err = _cuda_build.lib().ldk_band_count(
-        g_dev.data_ptr(), c1_dev.data_ptr(), ipq_dev.data_ptr(),
-        pos_dev.data_ptr(), cij.data_ptr(), nb, g_dev.shape[0],
-        g_dev.shape[1], block_m, block_n, n_hap, n_f, inv_n, thres,
-        max_dist if use_dist else 0, sel, int(exact_mask), int(use_dist),
-        out.data_ptr(), _stream_ptr(g_dev),
-    )
-    _cuda_build.check(err, "ld_band_count_kernel")
-    ld_band_count.launches += 1
-    return out
+        return ld_band_count_plain(*args[:5], n_hap, max_dist, thres, **kw)
+    return _count_launch(ld_band_count, _cuda_build.FORM_S8, *args[:5],
+                         n_hap, max_dist, thres, **kw)
 
 
 ld_band_count.launches = 0
 
-LAUNCH_SITES = (ld_triangle_blocks, ld_band_sweep_blocks, ld_band_count)
+
+def ld_band_count_packed(gp_dev, c1_dev, ipq_dev, pos_dev, cij, params_i,
+                         params_f, *, sel: int, exact_mask: bool,
+                         use_dist: bool, block_m: int = 640,
+                         block_n: int = 640):
+    """:func:`ld_band_count` over the store's bitpacked uint8 rows (W
+    bytes a multiple of 16): the launch site of
+    ld_band_count_kernel<FORM_BITS> (K6), the packed branch of
+    _band_count_kernel.  Its counts equal K5's on the unpacked rows."""
+    n_hap, max_dist, thres = _count_params(params_i, params_f)
+    args = (gp_dev, c1_dev, ipq_dev, pos_dev, cij)
+    kw = dict(sel=sel, exact_mask=exact_mask, use_dist=use_dist,
+              block_m=block_m, block_n=block_n)
+    if not _on_card(*args):
+        return ld_band_count_packed_plain(*args, n_hap, max_dist, thres,
+                                          **kw)
+    return _count_launch(ld_band_count_packed, _cuda_build.FORM_BITS, *args,
+                         n_hap, max_dist, thres, **kw)
+
+
+ld_band_count_packed.launches = 0
+
+LAUNCH_SITES = (
+    ld_triangle_blocks, ld_triangle_blocks_bf16, ld_triangle_blocks_tf32,
+    ld_triangle_blocks_packed, ld_band_sweep_blocks,
+    ld_band_sweep_blocks_packed, ld_band_count, ld_band_count_packed,
+)
 
 
 def reset_launches() -> None:
@@ -658,6 +918,41 @@ def reset_launches() -> None:
 # ---- the JAX package's entry points ----------------------------------------
 
 
+# ld_triangle_matrix's mxu_dtype (the name or the torch dtype) -> its route
+_TRIANGLE_SITES = {
+    "int8": (torch.int8, ld_triangle_blocks),
+    "bfloat16": (torch.bfloat16, ld_triangle_blocks_bf16),
+    "float32": (torch.float32, ld_triangle_blocks_tf32),
+}
+
+
+def _triangle_site(mxu_dtype):
+    for name, (dt, site) in _TRIANGLE_SITES.items():
+        if mxu_dtype in (name, dt):
+            return site
+    raise ValueError(f"unknown mxu_dtype {mxu_dtype!r}: use "
+                     f"{', '.join(_TRIANGLE_SITES)}")
+
+
+def _triangle_pad(v, block_m, block_n):
+    block_m = min(block_m, _round_up(v, 128))
+    block_n = min(block_n, _round_up(v, 128))
+    return block_m, block_n, _round_up(v, max(block_m, block_n))
+
+
+def _triangle_run(site, g_pad, c1, n_haplotypes, v, *, block_m, block_n,
+                  epilogue, want_dprime):
+    dev = g_pad.device
+    ipq = _ipq_from_counts(c1, torch.tensor(_f32_inv(n_haplotypes)[0],
+                                            dtype=torch.float32, device=dev))
+    bi, bj = _triangle_coords(g_pad.shape[0] // block_m)
+    cij = torch.from_numpy(pack_block_coords(bi, bj)).to(dev)
+    r2, dp = site(g_pad, c1, ipq, cij, n_haplotypes, block_m=block_m,
+                  block_n=block_n, epilogue=epilogue,
+                  want_dprime=want_dprime)
+    return r2[:v, :v], (dp[:v, :v] if dp is not None else None)
+
+
 def ld_triangle_matrix(
     G,
     n_haplotypes=None,
@@ -665,43 +960,82 @@ def ld_triangle_matrix(
     block_m: int = 512,
     block_n: int = 512,
     want_dprime: bool = True,
-    mxu_dtype: str = "int8",
+    mxu_dtype="int8",
     epilogue: str = "exact",
 ):
     """All-pairs r^2/D' for G (V, H) {0,1}: lower-triangle blocks only
-    (ld_pallas.ld_triangle_matrix), through :func:`ld_triangle_blocks`.
+    (ld_pallas.ld_triangle_matrix).
 
     Returns (r2, d_prime) as (V, V) f32 tensors on G's device; cells of
     blocks above the diagonal are 0 (callers take tril).  ``epilogue=
     "fast"`` (r^2 only) is the divide-free form of the headline
-    benchmark.  Only the int8 count route exists (``mxu_dtype="int8"``).
+    benchmark.  ``mxu_dtype`` ("int8", "bfloat16" or "float32", or the
+    torch dtype) picks the tensor-core route: the int8 count of
+    :func:`ld_triangle_blocks` (K1), or the bf16 / tf32 products of
+    :func:`ld_triangle_blocks_bf16` / :func:`ld_triangle_blocks_tf32`
+    (K1b), which give the same values bit for bit.
     """
-    if mxu_dtype != "int8":
-        raise NotImplementedError(
-            "only the int8 count route is ported; the bf16/f32 dot "
-            "(ROADMAP: kernel K1b) is still to port"
-        )
+    site = _triangle_site(mxu_dtype)
     G = torch.as_tensor(G)
     _on_card(G)
     v, h = G.shape
     if n_haplotypes is None:
         n_haplotypes = h
-    block_m = min(block_m, _round_up(v, 128))
-    block_n = min(block_n, _round_up(v, 128))
-    v_pad = _round_up(v, max(block_m, block_n))
+    block_m, block_n, v_pad = _triangle_pad(v, block_m, block_n)
     g_pad = torch.zeros((v_pad, _round_up(h, 128)), dtype=torch.int8,
                         device=G.device)
     g_pad[:v, :h] = G.to(torch.int8)
     c1 = g_pad.to(torch.float32).sum(dim=1)
-    ipq = _ipq_from_counts(c1, torch.tensor(_f32_inv(n_haplotypes)[0],
-                                            dtype=torch.float32,
-                                            device=G.device))
-    bi, bj = _triangle_coords(v_pad // block_m)
-    cij = torch.from_numpy(pack_block_coords(bi, bj)).to(G.device)
-    r2, dp = ld_triangle_blocks(
-        g_pad, c1, ipq, cij, n_haplotypes, block_m=block_m, block_n=block_n,
-        epilogue=epilogue, want_dprime=want_dprime)
-    return r2[:v, :v], (dp[:v, :v] if dp is not None else None)
+    return _triangle_run(site, g_pad, c1, n_haplotypes, v, block_m=block_m,
+                         block_n=block_n, epilogue=epilogue,
+                         want_dprime=want_dprime)
+
+
+def ld_triangle_matrix_packed(
+    gp,
+    n_haplotypes: int,
+    *,
+    block_m: int = 512,
+    block_n: int = 512,
+    want_dprime: bool = True,
+    epilogue: str = "exact",
+    kernel: str = "dense",
+):
+    """All-pairs r^2/D' straight from the BITPACKED store matrix
+    (ld_pallas.ld_triangle_matrix_packed).
+
+    ``gp`` is the (V, ceil(H/8)) uint8 matrix exactly as ingest writes it.
+    ``kernel="dense"`` pads the byte width to a multiple of 16, inflates
+    the bytes to int8 on the device once (:func:`unpack_rows_device`) and
+    runs K1 (:func:`ld_triangle_blocks`); ``kernel="bitplane"`` pads it to
+    a multiple of 128 and keeps the bytes packed through K2
+    (:func:`ld_triangle_blocks_packed`), 8x less device memory.  c1 comes
+    from the bytes' popcounts.  Both give the values of
+    :func:`ld_triangle_matrix` on the unpacked rows bit for bit (padding
+    bits are zero).
+    """
+    if kernel not in ("dense", "bitplane"):
+        raise ValueError(f"kernel must be 'dense' or 'bitplane', got {kernel!r}")
+    gp = torch.as_tensor(gp)
+    _on_card(gp)
+    if gp.dtype != torch.uint8:
+        raise TypeError(f"packed rows must be uint8, got {gp.dtype}")
+    v, hp8 = gp.shape
+    if hp8 * 8 < n_haplotypes:
+        raise ValueError(f"{hp8} bytes cannot hold {n_haplotypes} haplotypes")
+    block_m, block_n, v_pad = _triangle_pad(v, block_m, block_n)
+    gp_pad = torch.zeros((v_pad, _round_up(hp8, 16 if kernel == "dense"
+                                            else 128)),
+                         dtype=torch.uint8, device=gp.device)
+    gp_pad[:v, :hp8] = gp
+    c1 = popcount_rows(gp_pad)
+    if kernel == "dense":
+        site, g_pad = ld_triangle_blocks, unpack_rows_device(gp_pad)
+    else:
+        site, g_pad = ld_triangle_blocks_packed, gp_pad
+    return _triangle_run(site, g_pad, c1, n_haplotypes, v, block_m=block_m,
+                         block_n=block_n, epilogue=epilogue,
+                         want_dprime=want_dprime)
 
 
 def ld_band_sweep(
@@ -720,14 +1054,12 @@ def ld_band_sweep(
     block_n: int = 512,
 ):
     """Band sweep, rows-block x cols-block grid (ld_pallas.ld_band_sweep):
-    {name: (Vr, Va)} over the full grid, through ld_band_sweep_blocks.
+    {name: (Vr, Va)} over the full grid, through ld_band_sweep_blocks
+    (K3) or, for ``packed=True``, ld_band_sweep_blocks_packed (K4).
 
-    Inputs are int8 {0,1} pre-padded to block multiples."""
-    if packed:
-        raise NotImplementedError(
-            "the bit-plane band sweep over packed bytes (ROADMAP: kernel "
-            "K4) is still to port; pass dense int8 rows"
-        )
+    Dense inputs are int8 {0,1} pre-padded to block multiples; packed
+    inputs are the store's bitpacked uint8 bytes padded to a 128-multiple
+    byte width."""
     vr, va = g_rows.shape[0], g_cols.shape[0]
     if vr % block_m or va % block_n:
         raise ValueError(
@@ -738,7 +1070,8 @@ def ld_band_sweep(
     bi, bj = np.meshgrid(np.arange(nbi), np.arange(nbj), indexing="ij")
     cij = torch.from_numpy(pack_block_coords(bi.ravel(), bj.ravel())).to(
         g_rows.device)
-    out = ld_band_sweep_blocks(
+    sweep = ld_band_sweep_blocks_packed if packed else ld_band_sweep_blocks
+    out = sweep(
         g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij,
         n_haplotypes, outs=outs, sel=sel, block_m=block_m, block_n=block_n,
     )
@@ -778,6 +1111,30 @@ def ld_band_pallas(
         G_rows, G_all, c1_rows, c1_all,
         _band_ipq(c1_rows, n_haplotypes), _band_ipq(c1_all, n_haplotypes),
         n_haplotypes, packed=False, outs=("r2", "dp"),
+        block_m=block_m, block_n=block_n,
+    )
+    return out["r2"], out["dp"]
+
+
+def ld_band_pallas_packed(
+    gp_rows,
+    gp_cols,
+    c1_rows,
+    c1_all,
+    n_haplotypes,
+    *,
+    block_m: int = 256,
+    block_n: int = 512,
+):
+    """Band sweep over BITPACKED blocks (uint8, 8 haplotypes a byte),
+    exact-order epilogue (ld_pallas.ld_band_pallas_packed): the contract
+    of :func:`ld_band_pallas` with the bytes kept packed end to end
+    through K4.  Shapes are pre-padded to block multiples on the variant
+    axes and to a 128-multiple byte width.  Returns (r2, dp)."""
+    out = ld_band_sweep(
+        gp_rows, gp_cols, c1_rows, c1_all,
+        _band_ipq(c1_rows, n_haplotypes), _band_ipq(c1_all, n_haplotypes),
+        n_haplotypes, packed=True, outs=("r2", "dp"),
         block_m=block_m, block_n=block_n,
     )
     return out["r2"], out["dp"]

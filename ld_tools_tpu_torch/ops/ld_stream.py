@@ -1,14 +1,21 @@
 """Chromosome-scale streamed all-pairs scan with on-device thresholding.
 
 Counterpart of ld_tools_tpu/ops/ld_stream.py for one device and one
-process.  The genotype matrix goes to the device once (``prepare_resident``:
-chr21 scale is 115,200 x 5,120 int8 = 590 MB of HBM), then:
+process.  The genotype matrix goes to the device once (``prepare_resident``)
+in one of two layouts, chosen as the JAX scan chooses them: the store's
+bitpacked bytes inflated to int8 on the device (chr21 scale is 115,200 x
+5,120 int8 = 590 MB), or, past ``TPU_LD_DENSE_RESIDENT_BYTES`` of int8
+(4 GiB by default: some 839,000 variants of 5,008 haplotypes), kept
+packed (a 1.1M-variant chromosome is 713 MB packed, 5.7 GB inflated).
+Then:
 
 - pass 1 counts the kept pairs of every ``count_block``-square block of
-  the lower triangle with the fused count kernel (``ld_band_count``,
-  K5): one int32 per block leaves the device;
+  the lower triangle with the fused count kernel (``ld_band_count``:
+  K5 on int8 rows, K6 on packed bytes): one int32 per block leaves the
+  device;
 - pass 2 sweeps only the blocks that have hits with the band kernel
-  (``ld_band_sweep_blocks``, K3) in batches, rebuilds the same keep mask
+  (``ld_band_sweep_blocks`` K3, or ``ld_band_sweep_blocks_packed`` K4)
+  in batches, rebuilds the same keep mask
   from its outputs, compacts the survivors with ``torch.nonzero``
   (row-major, like the JAX package's ``_compact_true_positions``) and
   checks every block's pass-2 hits against its pass-1 count;
@@ -38,6 +45,7 @@ from ld_tools_tpu_torch.ops.ld_kernels import (
     block_keep_mask,
     ld_band_count,
     ld_band_sweep_blocks,
+    ld_band_sweep_blocks_packed,
     mask_source,
     pack_block_coords,
     unpack_rows_device,
@@ -64,6 +72,16 @@ _FETCH_CELLS_PER_BATCH = 1 << 26
 # the JAX scan's default tiling, which fixes the resident padding
 _BAND = 3840
 _CHUNK = 7680
+
+# resident layouts (the JAX scan's ``resident`` argument)
+_RESIDENT_MODES = ("auto", "dense", "packed")
+
+
+def dense_resident_limit() -> int:
+    """Bytes of inflated int8 above which ``resident="auto"`` keeps a
+    packed input packed: $TPU_LD_DENSE_RESIDENT_BYTES, default 4 GiB, the
+    JAX scan's knob read the same way."""
+    return int(os.environ.get("TPU_LD_DENSE_RESIDENT_BYTES", str(4 << 30)))
 
 
 def _round_up(x: int, m: int) -> int:
@@ -93,27 +111,42 @@ class ScanHits:
 
 @dataclasses.dataclass
 class Resident:
-    """The scan's device state: the padded dense matrix and its per-row
-    vectors, exactly as the JAX scan lays them out
-    (ld_tools_tpu/ops/ld_stream.py:1062-1127)."""
+    """The scan's device state: the padded matrix and its per-row vectors,
+    exactly as the JAX scan lays them out
+    (ld_tools_tpu/ops/ld_stream.py:1062-1132)."""
 
-    g: torch.Tensor       # (v_pad, w) int8 {0,1}; padding rows/cols are 0
+    g: torch.Tensor       # (v_pad, w) int8 {0,1}, or uint8 bytes if packed;
+                          # padding rows/cols are 0
     c1: torch.Tensor      # (v_pad, 1) f32 alt counts; 0 for padding rows
     ipq: torch.Tensor     # (v_pad, 1) f32 1/(p*q); 0 monomorphic/padding
     pos: torch.Tensor     # (v_pad,) int32; padding rows at -2^30
     c1_full: np.ndarray   # (v,) int64 host alt counts
+    packed: bool = False  # g holds the bitpacked bytes (8 haplotypes each)
+
+    @property
+    def h_bits(self) -> int:
+        """Haplotype columns of g (padding included)."""
+        return self.g.shape[1] * (8 if self.packed else 1)
 
 
 def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
-                     packed: bool = False) -> Resident:
+                     packed: bool = False,
+                     resident: str = "auto") -> Resident:
     """Turn the store's host arrays into the scan's device tensors.
 
     ``G_or_packed`` is int8 (V, H) {0,1}, or with ``packed=True`` the
     store's bitpacked uint8 (V, ceil(H/8)) bytes, which go to the device
-    packed and are inflated there.  Padding follows the JAX scan at its
+    packed.  There they are inflated to int8 when ``resident`` is
+    "dense", or "auto" and the inflated matrix (v_pad * w_bytes * 8)
+    stays within :func:`dense_resident_limit`; otherwise (and always for
+    "packed") they stay packed.  This is the JAX scan's rule
+    (ld_stream.py:1108-1127).  Padding follows the JAX scan at its
     default tiling: V_pad = round_up(V, max(band, chunk)) + max(band,
     chunk), the haplotype axis to a multiple of 128 (bytes, when packed).
     """
+    if resident not in _RESIDENT_MODES:
+        raise ValueError(f"resident must be one of {_RESIDENT_MODES}, "
+                         f"got {resident!r}")
     dev = resolve_device(device)
     if packed:
         src = np.ascontiguousarray(G_or_packed, dtype=np.uint8)
@@ -142,22 +175,28 @@ def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
     pos_host = np.full((v_pad,), -(2**30), dtype=np.int32)
     pos_host[:v] = np.asarray(pos, dtype=np.int64)
     g = torch.from_numpy(g_host).to(dev)
-    if packed:
+    del g_host
+    if packed and resident != "packed" and (
+            resident == "dense" or v_pad * w * 8 <= dense_resident_limit()):
+        # inflate once on the device: the transfer stayed packed
         g = unpack_rows_device(g)
+        packed = False
     return Resident(
         g=g,
         c1=torch.from_numpy(c1_host).to(dev),
         ipq=torch.from_numpy(ipq_host).to(dev),
         pos=torch.from_numpy(pos_host).to(dev),
         c1_full=c1_full,
+        packed=packed,
     )
 
 
 # Device-resident scan inputs cached across calls: a repeat scan of the
 # same matrix skips host prep and upload.  Keyed by a caller-supplied
 # identity (the caller guarantees the bytes behind one key never change)
-# plus the layout and a hash of ``pos``.  Capacity in entries (default 1:
-# a chromosome-scale resident matrix is ~0.6 GB of device memory).
+# plus the input form, the resident layout (the requested one, and for
+# "auto" the limit it resolves against) and a hash of ``pos``.  Capacity in entries (default 1: a chromosome-scale resident
+# matrix is ~0.6-0.7 GB of device memory).
 _RESIDENT_CACHE = {}
 _RESIDENT_CACHE_ORDER = []
 
@@ -238,12 +277,15 @@ def stream_threshold_scan(
     ``thres``; ``exact=True`` re-finishes the hits in f64 and re-filters
     on the rounded values (the reference's post-rounding threshold).
     ``device`` is "cuda" (the hand-written kernels) unless the caller asks
-    for "cpu" (their plain PyTorch versions).  ``resident_key`` opts the
-    device tensors into a small cross-call cache.
+    for "cpu" (their plain PyTorch versions).  ``resident`` ("auto",
+    "dense" or "packed") picks the device layout of a packed input, as in
+    the JAX scan (see :func:`prepare_resident`); the scan's kernels follow
+    it (K5/K3 on int8 rows, K6/K4 on packed bytes) and the hits do not
+    depend on it.  ``resident_key`` opts the device tensors into a small
+    cross-call cache.
 
     Not ported yet, and refused rather than ignored: ``checkpoint_dir``
-    (ROADMAP queue 6), ``mesh`` (queue 8), ``multiprocess`` (queue 8)
-    and ``resident="packed"`` (kernels K4/K6).
+    (ROADMAP queue 6), ``mesh`` (queue 8) and ``multiprocess`` (queue 8).
     """
     if checkpoint_dir is not None:
         raise NotImplementedError(
@@ -255,12 +297,9 @@ def stream_threshold_scan(
         raise NotImplementedError(
             "cooperative multi-process scans are not ported yet "
             "(ROADMAP queue 8)")
-    if resident == "packed":
-        raise NotImplementedError(
-            "the packed resident layout needs the bit-plane kernels K4/K6, "
-            "not ported yet (ROADMAP queue 4)")
-    if resident not in ("auto", "dense"):
-        raise ValueError(f"resident must be 'auto' or 'dense', got {resident!r}")
+    if resident not in _RESIDENT_MODES:
+        raise ValueError(f"resident must be one of {_RESIDENT_MODES}, "
+                         f"got {resident!r}")
     if not 0 < count_block <= _MAX_COUNT_BLOCK:
         raise ValueError(
             f"count_block must be in (0, {_MAX_COUNT_BLOCK}], got {count_block}")
@@ -309,8 +348,11 @@ def stream_threshold_scan(
 
     cache_key = None
     if resident_key is not None:
+        # the layout: "auto" resolves against the limit in force
+        layout = (resident, dense_resident_limit() if resident == "auto"
+                  else None)
         cache_key = (
-            resident_key, packed, v, h, int(n_haplotypes), str(dev),
+            resident_key, packed, v, h, int(n_haplotypes), layout, str(dev),
             hashlib.sha256(np.ascontiguousarray(pos).tobytes()).hexdigest(),
         )
     res = _resident_cache_get(cache_key) if cache_key is not None else None
@@ -318,7 +360,8 @@ def stream_threshold_scan(
     stats["host_prep_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     if res is None:
-        res = prepare_resident(src, n_haplotypes, pos, dev, packed=packed)
+        res = prepare_resident(src, n_haplotypes, pos, dev, packed=packed,
+                               resident=resident)
         if cache_key is not None:
             _resident_cache_put(cache_key, res)
     _sync(dev)
@@ -331,9 +374,12 @@ def stream_threshold_scan(
     # past the int32-exact bound), then whatever else the hits carry home
     mask_src = mask_source(exact_mask)
     outs = (mask_src,) + tuple(x for x in want if x != mask_src)
-    # counts are bounded by the haplotype axis: int16 halves the per-hit
-    # bytes of the exact fetch (downcast after the mask has used int32)
-    cab_dtype = torch.int16 if res.g.shape[1] < 32768 else torch.int32
+    # counts are bounded by the haplotype axis (in bits when packed, as
+    # at JAX ld_stream.py:1177): int16 halves the per-hit bytes of the
+    # exact fetch (downcast after the mask has used int32)
+    cab_dtype = torch.int16 if res.h_bits < 32768 else torch.int32
+    stats["resident_packed"] = float(res.packed)
+    stats["resident_bytes"] = float(res.g.numel() * res.g.element_size())
 
     # pass 1: one fused count per block
     t0 = time.perf_counter()
@@ -342,7 +388,7 @@ def stream_threshold_scan(
     counts = ld_band_count(
         res.g, res.c1, res.ipq, res.pos, torch.from_numpy(cij_np).to(dev),
         (n_hap, max_dist if use_dist else 0), (margin_thres,),
-        packed=False, sel=sel, exact_mask=exact_mask, use_dist=use_dist,
+        packed=res.packed, sel=sel, exact_mask=exact_mask, use_dist=use_dist,
         block_m=count_block, block_n=count_block,
     ).cpu().numpy().astype(np.int64)
     stats["count_s"] = time.perf_counter() - t0
@@ -353,13 +399,14 @@ def stream_threshold_scan(
     hit = np.flatnonzero(counts > 0)
     stats["hit_blocks"] = int(hit.size)
     per_batch = max(1, _FETCH_CELLS_PER_BATCH // (count_block * count_block))
+    sweep = ld_band_sweep_blocks_packed if res.packed else ld_band_sweep_blocks
     parts = {name: [] for name in ("i", "j") + want}
     n_device_hits = 0
     stats["blocks_checked"] = 0
     for lo in range(0, hit.size, per_batch):
         sel_blocks = hit[lo:lo + per_batch]
         cij = torch.from_numpy(cij_np[sel_blocks]).to(dev)
-        vals = ld_band_sweep_blocks(
+        vals = sweep(
             res.g, res.g, res.c1, res.c1, res.ipq, res.ipq, cij, n_hap,
             outs=outs, sel=sel, block_m=count_block, block_n=count_block,
         )

@@ -116,7 +116,6 @@ def test_cli_unported_flags_raise(flag, value, tmp_path):
 
 @pytest.mark.parametrize("kw", [
     {"checkpoint_dir": "x"}, {"mesh": object()}, {"multiprocess": True},
-    {"resident": "packed"},
 ])
 def test_scan_unported_options_raise(kw):
     import numpy as np
@@ -126,6 +125,32 @@ def test_scan_unported_options_raise(kw):
     G = np.zeros((4, 16), dtype=np.int8)
     with pytest.raises(NotImplementedError):
         stream_threshold_scan(G, thres=0.5, device="cpu", **kw)
+
+
+def test_packed_resident_raises_without_a_card(monkeypatch):
+    """resident="packed" runs the packed kernels on the card: with no
+    card it raises, and nothing falls back to the CPU."""
+    import numpy as np
+
+    from ld_tools_tpu_torch.ops.ld_stream import stream_threshold_scan
+
+    _no_card(monkeypatch)
+    gp = np.zeros((4, 2), dtype=np.uint8)
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="no CUDA card"):
+            stream_threshold_scan(G_packed=gp, n_haplotypes=16, thres=0.5,
+                                  resident="packed", **kw)
+
+
+@pytest.mark.parametrize("resident", ["bitplane", "PACKED", ""])
+def test_scan_unknown_resident_raises(resident):
+    import numpy as np
+
+    from ld_tools_tpu_torch.ops.ld_stream import stream_threshold_scan
+
+    G = np.zeros((4, 16), dtype=np.int8)
+    with pytest.raises(ValueError, match="resident"):
+        stream_threshold_scan(G, thres=0.5, device="cpu", resident=resident)
 
 
 def test_mixed_ploidy_scan_raises():
