@@ -34,10 +34,23 @@ Phases, each of which exits non-zero on any failure:
             read around each run and every run's hits are held against an
             f64 recount of sampled hits and pairs;
 5. parity   a 10,240-variant store: the -E cuda TSVs of both layouts must
-            be byte-identical to the -E torch TSV (plain versions, CPU).
+            be byte-identical to the -E torch TSV (plain versions, CPU);
+6. bench    the port's measurement entry points, each as ``python -m``
+            must exit 0: the headline sweep (``ld_tools_tpu_torch.bench``,
+            one JSON line with bench.py's metric and keys), the K8 stage
+            split (``bench.microkernels``: K8's launches on its path), the
+            fast triangle variants (``bench.kernels --only fast``) and
+            suite config 5 with its artifact.  Each reports its own launch
+            counts, and each must have launched its kernels and no other.
 
-It ends with a JSON line of the build time and the scans' phases and
-launch counts, a ``kernels`` JSON line, the nvidia-smi line and, last, the
+K8 (the staged triangle kernel, ``ld_stage_blocks``: K1's kernel at four
+epilogues) is held against its plain version at every stage in phase 3,
+at V = 10,240 with 512-row blocks and on the ragged rows, and timed
+there.  So are K1 at the 512- and 1,024-row blocks and K2 at the
+1,024-row blocks that ``bench.kernels --only fast`` launches.
+
+It ends with a JSON line of the build time, the scans' phases and launch
+counts and the headline record, a ``kernels`` JSON line, the nvidia-smi line and, last, the
 device JSON line.  It needs the repository around it and a CUDA card.
 """
 
@@ -45,6 +58,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import shutil
 import subprocess
 import sys
@@ -76,6 +90,19 @@ N_PARITY = 10_240    # the -E cuda / -E torch store
 LIMIT = "TPU_LD_DENSE_RESIDENT_BYTES"
 SOURCE = "ld_tools_tpu_torch/csrc/ld_kernels.cu"
 PALLAS = "ld_tools_tpu/ops/ld_pallas.py"
+# K8's stages (ops/ld_kernels.STAGES) and block (bench_microkernels.py's)
+STAGES = ("counts", "scale", "fast", "exact")
+STAGE_BLOCK = 512
+# the other (route, block) pairs ``bench.kernels --only fast`` launches
+BENCH_BLOCKS = (("ld_triangle_kernel", 512), ("ld_triangle_kernel", 1024),
+                ("ld_triangle_kernel<FORM_BITS>", 1024))
+
+
+def _stage_kernel(stage):
+    """K8 at one stage: K1's kernel with epilogue EPI_<STAGE>."""
+    return f"ld_triangle_kernel/EPI_{stage.upper()}"
+
+
 # kernel name -> (its tag in ROADMAP.md, the TPU kernel it replaces)
 KERNELS = {
     "ld_triangle_kernel": ("K1", f"{PALLAS}:259"),
@@ -86,6 +113,8 @@ KERNELS = {
     "ld_band_sweep_kernel<FORM_BITS>": ("K4", f"{PALLAS}:693"),
     "ld_band_count_kernel": ("K5", f"{PALLAS}:909"),
     "ld_band_count_kernel<FORM_BITS>": ("K6", f"{PALLAS}:949"),
+    **{_stage_kernel(s): ("K8", "scripts/bench_microkernels.py:76")
+       for s in STAGES},
 }
 # launch site (ops/ld_kernels.py) -> the kernel it launches
 KERNEL_OF_SITE = {
@@ -97,6 +126,7 @@ KERNEL_OF_SITE = {
     "ld_band_sweep_blocks_packed": "ld_band_sweep_kernel<FORM_BITS>",
     "ld_band_count": "ld_band_count_kernel",
     "ld_band_count_packed": "ld_band_count_kernel<FORM_BITS>",
+    "ld_stage_blocks": "ld_triangle_kernel/EPI_*",  # one of the four
 }
 
 
@@ -129,6 +159,16 @@ def cuda_ms(fn, reps, warmup=1):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def int_mm_rows(g, nb, block):
+    """torch._int_mm over the lower-triangle block rows of ``g``: the
+    yardstick of the int8 counts, one call per block row (never called by
+    the port)."""
+    import torch
+
+    for k in range(nb):
+        torch._int_mm(g[k * block:(k + 1) * block], g[:(k + 1) * block].t())
 
 
 def bound(ops, nbytes, peak=H100_INT8_OPS):
@@ -230,11 +270,17 @@ def phase_build():
 
     info = _cuda_build.build(force=True, verbose=True)
     _cuda_build.lib()
-    regs = [ln.strip() for ln in info["log"].splitlines()
-            if "registers" in ln or "spill" in ln]
     log(f"build: nvcc {info['seconds']:.1f}s -> {_cuda_build.LIB}")
-    for ln in regs:
-        log(f"  ptxas: {ln}")
+    # ptxas names each kernel (mangled) before its resource lines: keep
+    # the kernel's name and template argument beside them
+    kernel = "?"
+    for ln in info["log"].splitlines():
+        m = re.search(r"Compiling entry function '.*?\d(ld_[a-z_]+?_kernel)"
+                      r"ILi(\d+)E", ln)
+        if m:
+            kernel = f"{m.group(1)}<{m.group(2)}>"
+        elif "registers" in ln or "spill" in ln:
+            log(f"  ptxas {kernel}: {ln.strip()}")
     return info["seconds"]
 
 
@@ -281,11 +327,12 @@ def _triangle_routes():
     }
 
 
-def _check_triangle(name, g, gq, c1, ipq, cij, what):
-    """A triangle route against its plain version on the blocks ``cij``,
-    fast and exact epilogues, D' on and off, and against K1 (its int8
-    twin) bit for bit; the largest abs error against the plain version.
-    ``g`` holds the int8 rows, ``gq`` the same rows packed."""
+def _check_triangle(name, g, gq, c1, ipq, cij, what, block=BLOCK):
+    """A triangle route against its plain version on the ``block``-row
+    blocks ``cij``, fast and exact epilogues, D' on and off, and against
+    K1 (its int8 twin) bit for bit; the largest abs error against the
+    plain version.  ``g`` holds the int8 rows, ``gq`` the same rows
+    packed."""
     import torch
 
     from ld_tools_tpu_torch.ops import ld_kernels as lk
@@ -294,8 +341,8 @@ def _check_triangle(name, g, gq, c1, ipq, cij, what):
     rows = gq if packed else g
     err = 0.0
     for epi, want_dp in (("fast", False), ("exact", True), ("exact", False)):
-        kw = dict(epilogue=epi, want_dprime=want_dp, block_m=BLOCK,
-                  block_n=BLOCK)
+        kw = dict(epilogue=epi, want_dprime=want_dp, block_m=block,
+                  block_n=block)
         got = site(rows, c1, ipq, cij, N_HAP, **kw)
         ref = plain(rows, c1, ipq, cij, N_HAP, **kw)
         twin = (got if site is lk.ld_triangle_blocks
@@ -307,22 +354,19 @@ def _check_triangle(name, g, gq, c1, ipq, cij, what):
                 continue
             e = float((a - b).abs().max())
             err = max(err, e)
-            check(e <= 1e-6, f"{name} {what} {epi}/dp={want_dp}: max abs "
-                  f"err {e}")
-            check(torch.equal(a, t), f"{name} {what} {epi}/dp={want_dp}: "
-                  "differs from K1")
+            tag = f"{name} {what} block {block} {epi}/dp={want_dp}"
+            check(e <= 1e-6, f"{tag}: max abs err {e}")
+            check(torch.equal(a, t), f"{tag}: differs from K1")
         del got, ref, twin
     return err
 
 
-def phase_triangles(results):
-    """K1, K1b and K2 at the headline sweep (bench.py): V = 10,240 random
-    rows, fast epilogue; each route's own entry point is its path."""
+def triangle_rows():
+    """The headline sweep's rows (bench.py): V = 10,240 random rows with
+    monomorphic and near-monomorphic ones, as int8 (V, 5,120) and packed
+    (V, 640) tensors on the card."""
     import torch
 
-    from ld_tools_tpu_torch.ops import ld_kernels as lk
-
-    dev = torch.device("cuda")
     rng = np.random.default_rng(0)
     v1 = N_TRIANGLE
     freqs = rng.uniform(0.05, 0.95, size=(v1, 1))
@@ -331,9 +375,21 @@ def phase_triangles(results):
     G1[2] = 1
     G1[3] = 0
     G1[3, 9] = 1
-    g1 = torch.zeros((v1, W_DENSE), dtype=torch.int8, device=dev)
-    g1[:, :N_HAP] = torch.from_numpy(G1).to(dev)
-    gq1 = torch.from_numpy(_packed_rows(G1)).to(dev)
+    g1 = torch.zeros((v1, W_DENSE), dtype=torch.int8, device="cuda")
+    g1[:, :N_HAP] = torch.from_numpy(G1).to("cuda")
+    return g1, torch.from_numpy(_packed_rows(G1)).to("cuda")
+
+
+def phase_triangles(results, g1, gq1):
+    """K1, K1b and K2 at the headline sweep (bench.py) on the rows of
+    :func:`triangle_rows`, fast epilogue; each route's own entry point is
+    its path.  Then K1 and K2 at the other blocks of ``bench.kernels``."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    dev = torch.device("cuda")
+    v1 = g1.shape[0]
     c1 = g1.to(torch.float32).sum(dim=1)
     ipq = lk._ipq_from_counts(c1, torch.tensor(float(N_HAP), device=dev))
     bi, bj = lk._triangle_coords(v1 // BLOCK)
@@ -342,12 +398,7 @@ def phase_triangles(results):
     fast = dict(epilogue="fast", want_dprime=False, block_m=BLOCK,
                 block_n=BLOCK)
 
-    def int_mm_rows(g, nb):
-        for k in range(nb):
-            torch._int_mm(g[k * BLOCK:(k + 1) * BLOCK],
-                          g[:(k + 1) * BLOCK].t())
-
-    mm1 = cuda_ms(lambda: int_mm_rows(g1, v1 // BLOCK), reps=5)
+    mm1 = cuda_ms(lambda: int_mm_rows(g1, v1 // BLOCK, BLOCK), reps=5)
     out = (torch.empty((v1, v1), dtype=torch.float32, device=dev), None)
     G1_dev = g1[:, :N_HAP].contiguous()
     gp1_dev = gq1[:, :N_HAP // 8].contiguous()
@@ -403,7 +454,77 @@ def phase_triangles(results):
         log(f"{KERNELS[name][0]} {name}: {ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm1:.3f} ms, "
             f"max abs err {err:.3g}")
-    del out, g1, gq1, r2_k1
+    del out, r2_k1
+    for name, block in BENCH_BLOCKS:
+        bi, bj = lk._triangle_coords(v1 // block)
+        cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
+        e = _check_triangle(name, g1, gq1, c1, ipq, cij, f"V={v1}", block)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+    log(f"K1 at blocks 512 and 1024, K2 at 1024: equal the plain versions "
+        f"(V={v1})")
+    torch.cuda.empty_cache()
+
+
+def _check_stage(stage, g, c1, ipq, cij, what):
+    """K8 at one stage against its plain version on the blocks ``cij``:
+    counts bit for bit, f32 values within 1e-6; the largest abs error."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    kw = dict(block=STAGE_BLOCK, stage=stage)
+    got = lk.ld_stage_blocks(g, c1, ipq, cij, N_HAP, **kw)
+    ref = lk.ld_stage_blocks_plain(g, c1, ipq, cij, N_HAP, **kw)
+    torch.cuda.synchronize()
+    if stage == "counts":
+        check(torch.equal(got, ref), f"K8 counts {what}: differ in "
+              f"{int((got != ref).sum())} cells")
+        return 0.0
+    e = float((got - ref).abs().max())
+    check(e <= 1e-6, f"K8 {stage} {what}: max abs err {e}")
+    return e
+
+
+def phase_stage(results, g):
+    """K8 at the microkernel bench's shape: the rows of
+    :func:`triangle_rows` (V = 10,240 x W = 5,120), 512-row blocks, alt
+    counts jittered as the bench jitters them; every stage against its
+    plain version, then timed against its bound and torch._int_mm over the
+    same block rows."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    dev = torch.device("cuda")
+    v = g.shape[0]
+    c1 = g.to(torch.float32).sum(dim=1) * (1.0 + 3e-7)
+    ipq = lk._ipq_from_counts(c1, torch.tensor(float(N_HAP), device=dev))
+    bi, bj = lk._triangle_coords(v // STAGE_BLOCK)
+    cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
+    nb = len(bi)
+    cells = nb * STAGE_BLOCK * STAGE_BLOCK
+    mm = cuda_ms(lambda: int_mm_rows(g, v // STAGE_BLOCK, STAGE_BLOCK),
+                 reps=5)
+    b = bound(2 * cells * N_HAP, v * W_DENSE + 8 * v + 4 * nb + 4 * cells)
+    out = torch.empty((v, v), dtype=torch.float32, device=dev)
+    for stage in STAGES:
+        kw = dict(block=STAGE_BLOCK, stage=stage)
+        err = _check_stage(stage, g, c1, ipq, cij, f"V={v}")
+        ms = cuda_ms(lambda: lk.ld_stage_blocks(g, c1, ipq, cij, N_HAP,
+                                                out=out, **kw), reps=20)
+        plain_ms = cuda_ms(lambda: lk.ld_stage_blocks_plain(
+            g, c1, ipq, cij, N_HAP, **kw), reps=2)
+        name = _stage_kernel(stage)
+        results[name] = dict(
+            launches=0, max_abs_err=err, ms=ms, plain_ms=plain_ms,
+            bound_ms=b[0], bound_by=b[1], library_ms=None, int_mm_ms=mm,
+            path="python -m ld_tools_tpu_torch.bench.microkernels",
+            shape=f"{nb} blocks of {STAGE_BLOCK}x{STAGE_BLOCK}, "
+                  f"W={W_DENSE} int8, V={v}")
+        log(f"K8 {name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+            f"{b[0]:.3f} ms ({b[1]}), torch._int_mm {mm:.3f} ms, max abs "
+            f"err {err:.3g}")
+    del out
     torch.cuda.empty_cache()
 
 
@@ -450,6 +571,21 @@ def phase_ragged(gp_host, pos, results):
     for name in _triangle_routes():
         e = _check_triangle(name, g, gq, c1r, ipqr, cij, f"V={n_rows}")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+    for name, block in BENCH_BLOCKS:
+        bib, bjb = np.tril_indices(-(-n_rows // block))
+        cijb = torch.from_numpy(lk.pack_block_coords(bib, bjb)).to(dev)
+        e = _check_triangle(name, g, gq, c1r, ipqr, cijb, f"V={n_rows}",
+                            block)
+        results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+    # K8 at the microkernel bench's 512-row blocks: the last is partial
+    bi8, bj8 = np.tril_indices(-(-n_rows // STAGE_BLOCK))
+    cij8 = torch.from_numpy(lk.pack_block_coords(bi8, bj8)).to(dev)
+    for stage in STAGES:
+        r = results[_stage_kernel(stage)]
+        e = _check_stage(stage, g, c1r, ipqr, cij8, f"V={n_rows}")
+        r["max_abs_err"] = max(r["max_abs_err"], e)
+    log(f"K8: every stage equals the plain version ({n_rows} ragged rows, "
+        f"{STAGE_BLOCK}-row blocks)")
     hit = torch.cat([cij[:20], cij[-20:]])  # the last holds partial blocks
     err = {"ld_band_sweep_kernel": 0.0, "ld_band_sweep_kernel<FORM_BITS>": 0.0}
     for outs, sel in ((("cab",), 0), (("cab", "r2", "dp", "meas"), 0),
@@ -534,12 +670,7 @@ def phase_scan_shapes(gp_host, pos, results):
     cells5 = (nb5 - diag) * BLOCK * BLOCK + diag * BLOCK * (BLOCK - 1) // 2
     rows5 = -(-v // BLOCK) * BLOCK
 
-    def int_mm_rows(g, nb):
-        for k in range(nb):
-            torch._int_mm(g[k * BLOCK:(k + 1) * BLOCK],
-                          g[:(k + 1) * BLOCK].t())
-
-    mm5 = cuda_ms(lambda: int_mm_rows(rd.g, -(-v // BLOCK)), reps=1)
+    mm5 = cuda_ms(lambda: int_mm_rows(rd.g, -(-v // BLOCK), BLOCK), reps=1)
     counts = {}
     for name, res in (("ld_band_count_kernel", rd),
                       ("ld_band_count_kernel<FORM_BITS>", rp)):
@@ -832,6 +963,92 @@ def phase_parity(work):
         "-E torch")
 
 
+def _run_module(module, *args, timeout=600):
+    """``python -m module args`` from the repository root, as a user runs
+    it; it must exit 0.  Returns (stdout, stderr, the JSON launch report
+    it prints on stderr: the counts of its own process, which start at 0
+    and are read at its end)."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ, PYTHONPATH=here)
+    cmd = f"python -m {module} {' '.join(args)}".strip()
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", module, *args], cwd=here,
+                          env=env, capture_output=True, text=True,
+                          timeout=timeout)
+    check(proc.returncode == 0, f"{cmd} exited {proc.returncode}:\n"
+          f"{proc.stderr[-3000:]}")
+    reports = [json.loads(ln) for ln in proc.stderr.splitlines()
+               if ln.startswith('{"launches"')]
+    check(len(reports) == 1, f"{cmd} printed {len(reports)} launch reports")
+    log(f"bench: {cmd}: exit 0 in {time.perf_counter() - t0:.1f}s")
+    return proc.stdout, proc.stderr, reports[0]
+
+
+def _only_launched(cmd, launches, sites):
+    """The run launched each of ``sites`` and nothing else."""
+    for site, n in launches.items():
+        if site in sites:
+            check(n > 0, f"{cmd} never launched {site}")
+        else:
+            check(n == 0, f"{cmd} launched {site} {n} times")
+
+
+def phase_bench(work, results):
+    """The port's measurement entry points, as subprocesses: the headline
+    sweep (its one JSON line, bench.py's keys), the K8 stage split (its
+    launch counts are K8's on its path), the fast triangle variants and
+    suite config 5 (its artifact).  Returns the headline record."""
+    out, err, rep = _run_module("ld_tools_tpu_torch.bench")
+    lines = out.strip().splitlines()
+    check(len(lines) == 1, f"the headline printed {len(lines)} lines")
+    head = json.loads(lines[0])
+    check(set(head) == {"metric", "value", "unit", "vs_baseline", "spread"},
+          f"headline keys {sorted(head)}")
+    check(head["metric"] ==
+          "ld_triangle_allpairs_r2_variant_pairs_per_sec_per_chip"
+          and head["unit"] == "pairs/s", "headline metric")
+    check(np.isfinite(head["value"]) and head["value"] > 0, "headline value")
+    _only_launched("the headline", rep["launches"], {"ld_triangle_blocks"})
+    for ln in err.splitlines():
+        if ln.startswith(("device:", "roofline:")):
+            log(f"  {ln}")
+    log(f"headline: {lines[0]}")
+
+    out, _, rep = _run_module("ld_tools_tpu_torch.bench.microkernels")
+    rows = out.strip().splitlines()
+    check([r.split()[0] for r in rows] == list(STAGES),
+          f"microkernels printed {rows}")
+    _only_launched("bench.microkernels", rep["launches"], {"ld_stage_blocks"})
+    for stage, row in zip(STAGES, rows):
+        ms = float(row.split()[1])
+        check(np.isfinite(ms) and ms > 0, f"stage {stage}: {row}")
+        results[_stage_kernel(stage)]["launches"] = \
+            rep["stages"][stage]["launches"]
+        log(f"  {row}")
+
+    out, _, rep = _run_module("ld_tools_tpu_torch.bench.kernels", "--only",
+                              "fast")
+    rows = out.strip().splitlines()
+    check(len(rows) == 3, f"bench.kernels --only fast printed {rows}")
+    _only_launched("bench.kernels --only fast", rep["launches"],
+                   {"ld_triangle_blocks", "ld_triangle_blocks_packed"})
+    for row in rows:
+        log(f"  {row}")
+
+    art = os.path.join(work, "suite.json")
+    _, _, rep = _run_module("ld_tools_tpu_torch.bench.suite", "--configs",
+                            "5", "--out", art)
+    # config 5's default kernel="dense": one unpack on the card, then K1
+    _only_launched("bench.suite --configs 5", rep["launches"],
+                   {"ld_triangle_blocks"})
+    with open(art) as fh:
+        (row,) = json.load(fh)["results"]
+    check(row["config"] == "5_batch_8chrom" and row["seconds"] > 0,
+          f"suite artifact row {row}")
+    log(f"  suite: {json.dumps(row)}")
+    return head
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -857,13 +1074,18 @@ def main():
     log(f"data: {gp.shape[0]} variants x {N_HAP} haplotypes "
         f"({time.perf_counter() - t_start:.1f}s so far)")
     results = {}
-    phase_triangles(results)
+    g1, gq1 = triangle_rows()
+    phase_triangles(results, g1, gq1)
+    phase_stage(results, g1)
+    del g1, gq1
     phase_ragged(gp, pos, results)
     phase_scan_shapes(gp, pos, results)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         scan = phase_scan(work, gp, pos, results)
         phase_parity(work)
+        torch.cuda.empty_cache()  # the bench processes share the card
+        headline = phase_bench(work, results)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -880,7 +1102,8 @@ def main():
             path=r["path"], shape=r["shape"],
         ))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"build_s": build_s, "scan": scan}, default=float))
+    print(json.dumps({"build_s": build_s, "scan": scan,
+                      "headline": headline}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -11,6 +11,9 @@
 //                         _tri_kernel_dense (K1: int8; K1b: the bf16 /
 //                         f32 branch) and _tri_kernel_packed (K2):
 //                         lower-triangle blocks of all-pairs r^2 (and D').
+//                         Its two extra epilogues (enum Epilogue) replace
+//                         scripts/bench_microkernels.py's staged triangle
+//                         kernel (K8), which splits K1's time by stage.
 //   ld_band_sweep_kernel  replaces ld_pallas.py _band_sweep_kernel, dense
 //                         (K3) and packed (K4) branches: per-block output
 //                         menu cab / r2 / dp / meas, over a LIST of blocks
@@ -609,14 +612,29 @@ ld_band_sweep_kernel(const int8_t* __restrict__ ga,
             }
 }
 
-// ---- K1 / K1b / K2: lower-triangle all-pairs matrix ----------------------
+// ---- K1 / K1b / K2 / K8: lower-triangle all-pairs matrix -----------------
+//
+// The epilogue is a runtime argument, one value for the whole launch.
+// The r^2 sites use EPI_EXACT and EPI_FAST.  K8 (the staged kernel of
+// scripts/bench_microkernels.py, :76) runs all four on int8 rows: the
+// differences between their times split this kernel's own time into the
+// count and store, one multiply, the divide-free r^2 and the exact-order
+// r^2.  Every epilogue writes whole listed (bi, bj) blocks, the cells
+// above the diagonal of a diagonal block too, as the TPU kernels do.
+
+enum Epilogue : int {
+    EPI_EXACT = 0,   // r^2 (and D' when dp) in the exact order (ld_epilogue)
+    EPI_FAST = 1,    // the divide-free r^2 (fast_r2)
+    EPI_COUNTS = 2,  // K8's first stage: float(c_ab)
+    EPI_SCALE = 3,   // K8's second stage: c_ab * c1[row]
+};
 
 template <int FORM>
 __global__ void __launch_bounds__(NTHREADS)
 ld_triangle_kernel(const int8_t* __restrict__ g, const float* __restrict__ c1,
                    const float* __restrict__ ipq, const int* __restrict__ cij,
                    int n_rows, int W, int block_m, int block_n, int n_sub_m,
-                   int n_sub_n, float n_f, float inv_n, int fast,
+                   int n_sub_n, float n_f, float inv_n, int epi,
                    float* __restrict__ r2, float* __restrict__ dp) {
     __shared__ __align__(16) Smem sm;
     __shared__ RowVecs vec;
@@ -644,9 +662,13 @@ ld_triangle_kernel(const int8_t* __restrict__ g, const float* __restrict__ c1,
                 if (rg >= n_rows || cg >= n_rows) continue;
                 const size_t o = static_cast<size_t>(rg) * n_rows + cg;
                 const float cf = static_cast<float>(acc[mi][ni][e]);
-                if (fast) {
+                if (epi == EPI_FAST) {
                     r2[o] = fast_r2(cf, vec.c1r[r], vec.c1c[c], vec.ipqr[r],
                                     vec.ipqc[c], inv_n);
+                } else if (epi == EPI_COUNTS) {
+                    r2[o] = cf;
+                } else if (epi == EPI_SCALE) {
+                    r2[o] = cf * vec.c1r[r];
                 } else {
                     float r2x, dpx = 0.0f;
                     ld_epilogue(cf, vec.c1r[r], vec.c1c[c], inv_n, n_f,
@@ -681,7 +703,9 @@ Kernel pick(int form, Kernel s8, Kernel bits, Kernel bf16 = nullptr,
 // launch (a refused launch never runs, and a later synchronise would not
 // report it).  ``form`` is the operand form of the rows (enum Form):
 // 0 int8, 1 bitpacked bytes, and for the triangle also 2 bf16, 3 tf32;
-// any other value returns cudaErrorInvalidValue without a launch.
+// any other value returns cudaErrorInvalidValue without a launch.  The
+// triangle's ``epi`` (enum Epilogue: 0 exact, 1 fast, 2 counts, 3 scale)
+// is checked the same way.
 
 extern "C" {
 
@@ -729,19 +753,20 @@ int ldk_band_sweep(const void* ga, const void* gb, const void* c1a,
 
 int ldk_triangle(const void* g, const void* c1, const void* ipq,
                  const void* cij, int n_blocks, int n_rows, int W,
-                 int block_m, int block_n, float n_f, float inv_n, int fast,
+                 int block_m, int block_n, float n_f, float inv_n, int epi,
                  int form, void* r2, void* dp, void* stream) {
     auto kernel = pick(form, ld_triangle_kernel<FORM_S8>,
                        ld_triangle_kernel<FORM_BITS>,
                        ld_triangle_kernel<FORM_BF16>,
                        ld_triangle_kernel<FORM_TF32>);
-    if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
+    if (!kernel || epi < EPI_EXACT || epi > EPI_SCALE)
+        return static_cast<int>(cudaErrorInvalidValue);
     const int sm_ = n_sub(block_m), sn_ = n_sub(block_n);
     kernel<<<n_blocks * sm_ * sn_, NTHREADS, 0,
              static_cast<cudaStream_t>(stream)>>>(
         static_cast<const int8_t*>(g), static_cast<const float*>(c1),
         static_cast<const float*>(ipq), static_cast<const int*>(cij), n_rows,
-        W, block_m, block_n, sm_, sn_, n_f, inv_n, fast,
+        W, block_m, block_n, sm_, sn_, n_f, inv_n, epi,
         static_cast<float*>(r2), static_cast<float*>(dp));
     return static_cast<int>(cudaGetLastError());
 }

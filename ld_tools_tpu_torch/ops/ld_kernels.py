@@ -42,6 +42,9 @@ count pass, and each has a ``*_plain`` twin:
   ld_band_sweep_blocks_packed K4   _band_sweep_kernel, packed (:693)
   ld_band_count               K5   _band_count_kernel, dense (:909)
   ld_band_count_packed        K6   _band_count_kernel, packed (:949)
+  ld_stage_blocks             K8   the staged triangle kernel of
+                                   scripts/bench_microkernels.py (:76),
+                                   K1's kernel at four epilogues
 
 The packed sites take the store's bitpacked uint8 rows (8 haplotypes a
 byte, MSB first; padding bits zero).  Their plain versions unpack the
@@ -410,12 +413,19 @@ def _chunks(n: int):
 # tensor it returns its ``*_plain`` twin, which also runs on CUDA tensors
 # when called by name (chip_smoke.py holds each kernel against it there).
 
+# ld_triangle_kernel's epilogues, in the order of enum Epilogue in
+# csrc/ld_kernels.cu: the r^2 sites take the first two, K8 all four
+EPILOGUES = ("exact", "fast", "counts", "scale")
+# K8's stages, in the order the microkernel bench prints them
+STAGES = ("counts", "scale", "fast", "exact")
+
+
 def _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n, epilogue,
-                   want_dprime, packed=False):
-    if epilogue not in ("fast", "exact"):
+                   want_dprime, packed=False, epilogues=("fast", "exact")):
+    if epilogue not in epilogues:
         raise ValueError(f"unknown epilogue {epilogue!r}")
-    if epilogue == "fast" and want_dprime:
-        raise ValueError("epilogue='fast' computes r^2 only; "
+    if epilogue != "exact" and want_dprime:
+        raise ValueError(f"epilogue={epilogue!r} computes r^2 only; "
                          "use want_dprime=False")
     if block_m != block_n:
         raise ValueError("the triangle walk needs square blocks")
@@ -427,9 +437,9 @@ def _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n, epilogue,
 
 def _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
                     block_n, epilogue, want_dprime, packed=False,
-                    via=torch.int8):
+                    via=torch.int8, epilogues=("fast", "exact")):
     c1, ipq, cij = _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n,
-                                  epilogue, want_dprime, packed)
+                                  epilogue, want_dprime, packed, epilogues)
     v = g_pad.shape[0]
     dev = g_pad.device
     r2 = torch.zeros((v, v), dtype=torch.float32, device=dev)
@@ -442,12 +452,17 @@ def _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
         cab = haplotype_counts_int8(_gather_operand(g_pad, ra, va, packed),
                                     _gather_operand(g_pad, rb, vb, packed),
                                     via)
-        r2b, dpb = _apply_epilogue(
-            cab, n_haplotypes, _gather_rows(c1, ra, va)[:, :, None],
-            _gather_rows(c1, rb, vb)[:, None, :],
-            _gather_rows(ipq, ra, va)[:, :, None],
-            _gather_rows(ipq, rb, vb)[:, None, :], epilogue, want_dprime,
-        )
+        c1r = _gather_rows(c1, ra, va)[:, :, None]
+        if epilogue == "counts":
+            r2b, dpb = cab.to(torch.float32), None
+        elif epilogue == "scale":
+            r2b, dpb = cab.to(torch.float32) * c1r, None
+        else:
+            r2b, dpb = _apply_epilogue(
+                cab, n_haplotypes, c1r, _gather_rows(c1, rb, vb)[:, None, :],
+                _gather_rows(ipq, ra, va)[:, :, None],
+                _gather_rows(ipq, rb, vb)[:, None, :], epilogue, want_dprime,
+            )
         # write the cells that exist (a block past the matrix edge is cut)
         cells = va[:, :, None] & vb[:, None, :]
         k, r, c = torch.nonzero(cells, as_tuple=True)
@@ -458,12 +473,13 @@ def _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
 
 
 def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
-                     block_m, block_n, epilogue, want_dprime, out):
+                     block_m, block_n, epilogue, want_dprime, out,
+                     epilogues=("fast", "exact")):
     """Launch ld_triangle_kernel<form> over the blocks ``cij``; bumps
     ``site.launches``."""
     c1, ipq, cij = _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n,
                                   epilogue, want_dprime,
-                                  form == _cuda_build.FORM_BITS)
+                                  form == _cuda_build.FORM_BITS, epilogues)
     v, w = g_pad.shape
     if out is None:
         r2 = torch.zeros((v, v), dtype=torch.float32, device=g_pad.device)
@@ -482,10 +498,11 @@ def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
         err = _cuda_build.lib().ldk_triangle(
             g_pad.data_ptr(), c1.data_ptr(), ipq.data_ptr(), cij.data_ptr(),
             cij.shape[0], v, w, block_m, block_n, n_f, inv_n,
-            int(epilogue == "fast"), form, r2.data_ptr(),
+            EPILOGUES.index(epilogue), form, r2.data_ptr(),
             dp.data_ptr() if dp is not None else None, _stream_ptr(g_pad),
         )
-        _cuda_build.check(err, f"ld_triangle_kernel (form {form})")
+        _cuda_build.check(err, f"ld_triangle_kernel (form {form}, "
+                               f"epilogue {epilogue})")
         site.launches += 1
     return r2, dp
 
@@ -611,6 +628,52 @@ def ld_triangle_blocks_packed(gp_pad, c1, ipq, cij, n_haplotypes, *,
 
 
 ld_triangle_blocks_packed.launches = 0
+
+
+def _stage_kw(block, stage):
+    if stage not in STAGES:
+        raise ValueError(f"unknown stage {stage!r}: use {', '.join(STAGES)}")
+    return dict(block_m=block, block_n=block, epilogue=stage,
+                want_dprime=False, epilogues=STAGES)
+
+
+def ld_stage_blocks_plain(g_pad, c1, ipq, cij, n_haplotypes, *, block,
+                          stage):
+    """Plain version of :func:`ld_stage_blocks`: the triangle's plain walk
+    at the stage's epilogue."""
+    return _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes,
+                           **_stage_kw(block, stage))[0]
+
+
+def ld_stage_blocks(g_pad, c1, ipq, cij, n_haplotypes, *, block, stage,
+                    out=None):
+    """Launch site of K8 (the staged triangle kernel of
+    scripts/bench_microkernels.py): ld_triangle_kernel<FORM_S8>, K1's own
+    kernel, at one epilogue ``stage`` over the listed (bi, bj) blocks of a
+    (V, V) f32 matrix, whole blocks (the cells above the diagonal of a
+    diagonal block too):
+
+      counts  float(c_ab)
+      scale   c_ab * c1[row]
+      fast    the divide-free r^2, d^2 * ipq[row] * ipq[col]
+      exact   the exact-order r^2 (no D')
+
+    ``g_pad`` is int8 {0,1} (V, W), W a multiple of 16, c1/ipq its f32
+    alt counts and 1/(p*q) (any values: the bench jitters c1), and
+    ``n_haplotypes`` the n of the epilogues.  ``out`` reuses a (V, V) f32
+    buffer: only the listed blocks are written, the rest is left as it
+    was; without it the rest is 0."""
+    kw = _stage_kw(block, stage)
+    if not _on_card(g_pad, c1, ipq, cij):
+        return ld_stage_blocks_plain(g_pad, c1, ipq, cij, n_haplotypes,
+                                     block=block, stage=stage)
+    return _triangle_launch(ld_stage_blocks, _cuda_build.FORM_S8, g_pad, c1,
+                            ipq, cij, n_haplotypes,
+                            out=None if out is None else (out, None),
+                            **kw)[0]
+
+
+ld_stage_blocks.launches = 0
 
 
 def _band_prep(g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij,
@@ -906,6 +969,7 @@ LAUNCH_SITES = (
     ld_triangle_blocks, ld_triangle_blocks_bf16, ld_triangle_blocks_tf32,
     ld_triangle_blocks_packed, ld_band_sweep_blocks,
     ld_band_sweep_blocks_packed, ld_band_count, ld_band_count_packed,
+    ld_stage_blocks,
 )
 
 

@@ -1,0 +1,159 @@
+"""The port's bench entry points (ld_tools_tpu_torch/bench) on the CPU, at
+small sizes: the headline line's shape against bench.py's, no CPU fallback,
+the K8 stage rows, the suite's artifact, and the configs it refuses."""
+
+import importlib.util
+import json
+import os
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+
+from ld_tools_tpu_torch.bench import kernels, microkernels, suite
+from ld_tools_tpu_torch.bench.oracle import oracle_ld
+from ld_tools_tpu_torch.ops import ld_kernels as tk
+
+from .oracle import oracle_ld as reference_oracle_ld
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _no_card_env():
+    return dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES="")
+
+
+def _bench_py_metric():
+    with open(os.path.join(REPO, "bench.py")) as fh:
+        return re.search(r'"metric": "([^"]+)"', fh.read()).group(1)
+
+
+def test_headline_on_the_cpu_prints_bench_py_line():
+    out = subprocess.run(
+        [sys.executable, "-m", "ld_tools_tpu_torch.bench", "--device", "cpu"],
+        cwd=REPO, env=_no_card_env(), capture_output=True, text=True,
+        timeout=600)
+    assert out.returncode == 0, out.stderr[-3000:]
+    lines = out.stdout.strip().splitlines()
+    assert len(lines) == 1
+    rec = json.loads(lines[0])
+    # bench.py's CPU line: no spread (one timing, not samples)
+    assert set(rec) == {"metric", "value", "unit", "vs_baseline"}
+    assert rec["metric"] == _bench_py_metric()
+    assert rec["unit"] == "pairs/s"
+    assert rec["value"] > 0 and rec["vs_baseline"] > 0
+    assert "device: cpu" in out.stderr
+    report = [json.loads(ln) for ln in out.stderr.splitlines()
+              if ln.startswith('{"launches"')]
+    assert report and not any(report[0]["launches"].values())
+
+
+def test_headline_without_a_card_fails_and_prints_no_result():
+    out = subprocess.run(
+        [sys.executable, "-m", "ld_tools_tpu_torch.bench"], cwd=REPO,
+        env=_no_card_env(), capture_output=True, text=True, timeout=300)
+    assert out.returncode != 0
+    assert out.stdout == ""
+    assert "no CUDA card" in out.stderr
+
+
+def test_microkernels_on_the_cpu_print_four_stage_rows(capsys):
+    result = microkernels.main(["--device", "cpu", "--v", "200",
+                                "--block", "128"])
+    assert result is None
+    rows = capsys.readouterr().out.strip().splitlines()
+    assert [r.split()[0] for r in rows] == list(tk.STAGES)
+    for row in rows:
+        # a host-clock time at this size may be rejected (NaN) under load:
+        # the row still names its stage and says it is no device number
+        float(row.split()[1])
+        assert "no device peak" in row
+
+
+def test_microkernels_only_filters_the_stages(capsys):
+    got = microkernels.run(v=130, block=128, only="fast", device="cpu")
+    assert list(got) == ["fast"]
+    assert got["fast"]["launches"] == 0  # plain versions launch nothing
+    assert len(capsys.readouterr().out.strip().splitlines()) == 1
+
+
+def test_kernels_variants_route_to_the_ported_sites(capsys):
+    assert [v[0] for v in kernels.VARIANTS] == [
+        "dense/512/fast/r2only", "dense/1024/fast/r2only",
+        "dense/512/exact/r2only", "dense/512/exact/r2+dp",
+        "packed/1024/exact/r2only", "packed/1024/fast/r2only",
+        "bf16/512/exact/r2only"]
+    assert kernels.SITES == {"dense": tk.ld_triangle_blocks,
+                             "packed": tk.ld_triangle_blocks_packed,
+                             "bf16": tk.ld_triangle_blocks_bf16}
+    got = kernels.run(v=150, only="512/exact/r2+dp", device="cpu")
+    assert list(got) == ["dense/512/exact/r2+dp"] and got[
+        "dense/512/exact/r2+dp"] > 0
+    assert "dense/512/exact/r2+dp" in capsys.readouterr().out
+
+
+def test_suite_config5_writes_its_artifact(tmp_path, monkeypatch):
+    monkeypatch.setattr(suite, "CONFIG5_VARIANTS", 128)
+    path = tmp_path / "suite.json"
+    rows = suite.main(["--configs", "5", "--device", "cpu", "--out",
+                       str(path)])
+    with open(path) as fh:
+        art = json.load(fh)
+    assert art["results"] == rows
+    (row,) = rows
+    assert row["config"] == "5_batch_8chrom" and row["run_idx"] == 0
+    assert row["chroms_on_host"] == 8 and row["device"] == "cpu"
+    assert row["seconds"] >= 0 and "torch" in art["meta"]
+    assert art["meta"]["device"].startswith("device: cpu")
+
+
+def test_suite_scan_configs_at_a_small_size(monkeypatch, capsys):
+    monkeypatch.setattr(suite, "CONFIG4_VARIANTS", 1280)
+    monkeypatch.setattr(suite, "CONFIG0_VARIANTS", 40)
+    monkeypatch.setattr(suite, "CONFIG0_SAMPLES", 16)
+    rows = suite.main(["--configs", "4,0", "--device", "cpu"])
+    assert [r["config"] for r in rows] == [
+        "4_chr21_scan_100k", "4_chr21_scan_100k_warm",
+        "4b_chr21_scan_100k_exact", "4b_chr21_scan_100k_exact_warm",
+        "0_ingest", "0_ingest"]
+    # cold = warm; the exact f64 refilter keeps a subset of the device
+    # filter's hits (which sit one rounding step below the threshold)
+    hits = [r["hits"] for r in rows[:4]]
+    assert hits[0] == hits[1] >= hits[2] == hits[3] > 0
+    assert "phases" in rows[0] and rows[0]["device"] == "cpu"
+
+
+def test_suite_scan_data_is_the_jax_suites():
+    spec = importlib.util.spec_from_file_location(
+        "jax_bench_suite", os.path.join(REPO, "scripts", "bench_suite.py"))
+    jax_suite = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(jax_suite)
+    for got, want in zip(suite._scan_dataset(640 * 3, 46_000_000, 4),
+                         jax_suite._scan_dataset(640 * 3, 46_000_000, 4)):
+        np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("key,queue", [
+    ("1", 6), ("2", 6), ("3", 6), ("6", 6), ("6c", 6), ("0gb", 9), ("wg", 9)])
+def test_suite_unported_configs_raise(key, queue):
+    with pytest.raises(NotImplementedError, match=f"queue {queue}"):
+        suite.main(["--configs", key, "--device", "cpu"])
+
+
+def test_suite_refuses_unknown_configs():
+    with pytest.raises(SystemExit):
+        suite.main(["--configs", "7", "--device", "cpu"])
+
+
+def test_oracle_is_the_tests_oracle():
+    rng = np.random.default_rng(11)
+    for n_a, n_b, pa, pb in ((200, 200, 0.3, 0.6), (64, 80, 0.5, 0.5),
+                             (50, 50, 0.0, 0.4), (30, 30, 1.0, 1.0)):
+        a = list(map(int, rng.random(n_a) < pa))
+        b = list(map(int, rng.random(n_b) < pb))
+        got, want = oracle_ld(a, b), reference_oracle_ld(a, b)
+        assert got == want
+        assert {k: type(v) for k, v in got.items()} == {
+            k: type(v) for k, v in want.items()}

@@ -43,6 +43,19 @@ def test_importing_every_module_pulls_in_no_jax():
     assert int(out.stdout.strip()) >= 20
 
 
+def test_the_walk_covers_the_measurement_path():
+    """The import check above walks the bench and parallel modules too
+    (the bench's ``__main__`` runs nothing on import)."""
+    mods = set(_port_modules())
+    assert {
+        "ld_tools_tpu_torch.bench.__main__", "ld_tools_tpu_torch.bench.common",
+        "ld_tools_tpu_torch.bench.headline", "ld_tools_tpu_torch.bench.kernels",
+        "ld_tools_tpu_torch.bench.microkernels",
+        "ld_tools_tpu_torch.bench.oracle", "ld_tools_tpu_torch.bench.suite",
+        "ld_tools_tpu_torch.parallel.batch", "ld_tools_tpu_torch.utils.profiling",
+    } <= mods
+
+
 def test_sources_import_no_jax_and_nothing_of_the_jax_package():
     for root, dirs, files in os.walk(PORT_DIR):
         if "_build" in dirs:  # build outputs, not sources of the port

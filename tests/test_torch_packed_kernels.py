@@ -222,8 +222,10 @@ def test_packed_plain_versions_count_no_launch(rng):
                                  block_n=16)
     tk.ld_triangle_matrix(torch.from_numpy(g), mxu_dtype="bfloat16")
     tk.ld_triangle_matrix(torch.from_numpy(g), mxu_dtype="float32")
+    tk.ld_stage_blocks(torch.from_numpy(g), c1t, ipqt, cij, h, block=16,
+                       stage="exact")
     assert all(site.launches == 0 for site in tk.LAUNCH_SITES)
-    assert len(tk.LAUNCH_SITES) == 8
+    assert len(tk.LAUNCH_SITES) == 9
 
 
 def test_packed_sites_take_only_bytes_and_widths_of_16():
