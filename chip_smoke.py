@@ -33,6 +33,21 @@ Phases, each of which exits non-zero on any failure:
             where ``auto`` keeps the bytes packed.  The launch counts are
             read around each run and every run's hits are held against an
             f64 recount of sampled hits and pairs;
+   sharded  K7 (``ld_band_count_sharded``: K5's or K6's kernel once per
+            shard, each shard on its own stream) over [cuda:0] * 4 against
+            its plain version on the ragged rows (both forms, with and
+            without the window), against the unsharded K5 on the chr21
+            blocks (also over ``scan_mesh()``) and K6 on the 1.1 M store's
+            -w 1000000 blocks, bit for bit, timed beside them; the scan
+            over [cuda:0] * 4 in both layouts against the one-device scan
+            (hits, values, sentinels; only K7 and K3/K4 launched); the
+            ld_scan tool as two processes of a gloo group on the card
+            (``-d 2 -k``: K7 and K3 only), then again resuming every batch
+            (no launch), rank 0's TSV byte-identical to the single-process
+            TSV both times; and the replicated, ring and trapezoid sweeps
+            at 10,240 x 5,008 over [cuda:0] * 4, each equal to the
+            one-device sweep, its r^2 within 2e-5 of the f64 finish at
+            4,000 sampled pairs and of K1's exact r^2;
 5. parity   a 10,240-variant store: the -E cuda TSVs of both layouts must
             be byte-identical to the -E torch TSV (plain versions, CPU);
 6. bench    the port's measurement entry points, each as ``python -m``
@@ -113,6 +128,7 @@ KERNELS = {
     "ld_band_sweep_kernel<FORM_BITS>": ("K4", f"{PALLAS}:693"),
     "ld_band_count_kernel": ("K5", f"{PALLAS}:909"),
     "ld_band_count_kernel<FORM_BITS>": ("K6", f"{PALLAS}:949"),
+    "ld_band_count_sharded": ("K7", f"{PALLAS}:1206"),
     **{_stage_kernel(s): ("K8", "scripts/bench_microkernels.py:76")
        for s in STAGES},
 }
@@ -126,6 +142,8 @@ KERNEL_OF_SITE = {
     "ld_band_sweep_blocks_packed": "ld_band_sweep_kernel<FORM_BITS>",
     "ld_band_count": "ld_band_count_kernel",
     "ld_band_count_packed": "ld_band_count_kernel<FORM_BITS>",
+    # K7: K5's (or K6's) kernel launched once per shard
+    "ld_band_count_sharded": "ld_band_count_sharded",
     "ld_stage_blocks": "ld_triangle_kernel/EPI_*",  # one of the four
 }
 
@@ -361,12 +379,10 @@ def _check_triangle(name, g, gq, c1, ipq, cij, what, block=BLOCK):
     return err
 
 
-def triangle_rows():
-    """The headline sweep's rows (bench.py): V = 10,240 random rows with
-    monomorphic and near-monomorphic ones, as int8 (V, 5,120) and packed
-    (V, 640) tensors on the card."""
-    import torch
-
+def triangle_host():
+    """The headline sweep's rows (bench.py) on the host: V = 10,240 random
+    int8 (V, 5,008) rows, allele frequencies uniform in [0.05, 0.95],
+    with monomorphic and near-monomorphic ones."""
     rng = np.random.default_rng(0)
     v1 = N_TRIANGLE
     freqs = rng.uniform(0.05, 0.95, size=(v1, 1))
@@ -375,6 +391,16 @@ def triangle_rows():
     G1[2] = 1
     G1[3] = 0
     G1[3, 9] = 1
+    return G1
+
+
+def triangle_rows():
+    """The rows of :func:`triangle_host` as int8 (V, 5,120) and packed
+    (V, 640) tensors on the card."""
+    import torch
+
+    G1 = triangle_host()
+    v1 = G1.shape[0]
     g1 = torch.zeros((v1, W_DENSE), dtype=torch.int8, device="cuda")
     g1[:, :N_HAP] = torch.from_numpy(G1).to("cuda")
     return g1, torch.from_numpy(_packed_rows(G1)).to("cuda")
@@ -666,9 +692,6 @@ def phase_scan_shapes(gp_host, pos, results):
     kw5 = dict(sel=0, exact_mask=True, use_dist=False, block_m=BLOCK,
                block_n=BLOCK)
     nb5 = len(bi)
-    diag = int((bi == bj).sum())
-    cells5 = (nb5 - diag) * BLOCK * BLOCK + diag * BLOCK * (BLOCK - 1) // 2
-    rows5 = -(-v // BLOCK) * BLOCK
 
     mm5 = cuda_ms(lambda: int_mm_rows(rd.g, -(-v // BLOCK), BLOCK), reps=1)
     counts = {}
@@ -690,7 +713,7 @@ def phase_scan_shapes(gp_host, pos, results):
         ms = cuda_ms(count, reps=3)
         plain_ms = cuda_ms(lambda: plain(*args, N_HAP, 0, thres, **kw5),
                            reps=1, warmup=0)
-        b = bound(2 * cells5 * N_HAP, rows5 * (res.g.shape[1] + 12) + 8 * nb5)
+        b = _count_bound(bi, bj, v, res.g.shape[1])
         results[name] = dict(
             max_abs_err=0.0, ms=ms, plain_ms=plain_ms, bound_ms=b[0],
             bound_by=b[1], library_ms=None, int_mm_ms=mm5,
@@ -764,9 +787,7 @@ def _run_scan(data_dir, out_dir, extra=()):
     t0 = time.perf_counter()
     (report,) = ld_scan.main(argv)
     secs = time.perf_counter() - t0
-    launches = {KERNEL_OF_SITE[fn.__name__]: fn.launches
-                for fn in lk.LAUNCH_SITES}
-    return report, secs, launches
+    return report, secs, _launches()
 
 
 def _log_scan(tag, report, secs, launches):
@@ -896,7 +917,6 @@ def phase_scan(work, gp, pos, results):
     log("scan check: the packed layout's TSV is byte-identical to the int8 "
         "layout's")
     runs["full_packed"] = (report, secs, launches)
-    shutil.rmtree(data, ignore_errors=True)
 
     # (b) the slice at full size, at the default limit
     t0 = time.perf_counter()
@@ -926,10 +946,330 @@ def phase_scan(work, gp, pos, results):
                 seed=2)
     runs["full_size_window"] = (report, secs, launches)
     shutil.rmtree(data, ignore_errors=True)
-    return {tag: dict(hits=r.n_hits, seconds=s, stats=r.stats,
-                      launches={KERNELS[k][0] + " " + k: n
-                                for k, n in l.items() if n})
-            for tag, (r, s, l) in runs.items()}
+    summary = {tag: dict(hits=r.n_hits, seconds=s, stats=r.stats,
+                         launches={KERNELS[k][0] + " " + k: n
+                                   for k, n in l.items() if n})
+               for tag, (r, s, l) in runs.items()}
+    # the stores the sharded phase takes on: the chr21 store on disk with
+    # its single-process TSV, and the full-size chromosome's arrays
+    # (out_full now holds the 1.1 M TSV: the packed layout's chr21 TSV is
+    # the int8 one byte for byte)
+    return summary, dict(chr21=os.path.join(work, "chr21"),
+                         chr21_tsv=runs["full_packed"][0].path,
+                         full=(gpf, posf))
+
+
+def _count_bound(bi, bj, v, width):
+    """The least time of a count pass over the blocks (bi, bj): 2
+    operations a haplotype over the cells below the diagonal the blocks
+    hold, at the int8 peak, or their rows' bytes read once (padded width,
+    c1, ipq and pos) and one int32 a block written, at the HBM rate."""
+    nb = len(bi)
+    diag = int((bi == bj).sum())
+    cells = (nb - diag) * BLOCK * BLOCK + diag * BLOCK * (BLOCK - 1) // 2
+    rows = -(-v // BLOCK) * BLOCK
+    return bound(2 * cells * N_HAP, rows * (width + 12) + 8 * nb)
+
+
+def _same_hits(a, b):
+    return all(np.array_equal(getattr(a, k), getattr(b, k))
+               for k in ("i", "j", "r_square", "d_prime",
+                         "r_square_is_int_zero", "d_prime_is_int_zero"))
+
+
+def _launches():
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    return {KERNEL_OF_SITE[fn.__name__]: fn.launches
+            for fn in lk.LAUNCH_SITES}
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _run_pair(args, timeout=300):
+    """``python -m ld_tools_tpu_torch.ld_scan args`` as ranks 0 and 1 of a
+    gloo group on this card (torchrun's variables), from the repository
+    root; both must exit 0.  Returns each rank's (stderr, launch report)
+    and the wall seconds.  Kills both if either fails or hangs."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    port = str(_free_port())
+    procs = []
+    t0 = time.perf_counter()
+    try:
+        for rank in range(2):
+            env = dict(os.environ, PYTHONPATH=here, MASTER_ADDR="127.0.0.1",
+                       MASTER_PORT=port, WORLD_SIZE="2", RANK=str(rank),
+                       LOCAL_RANK=str(rank), TPU_LD_DIST_TIMEOUT_S="240")
+            procs.append(subprocess.Popen(
+                [sys.executable, "-m", "ld_tools_tpu_torch.ld_scan", *args],
+                cwd=here, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.PIPE, text=True))
+        outs = [p.communicate(timeout=timeout) for p in procs]
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    secs = time.perf_counter() - t0
+    res = []
+    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"cooperative ld_scan rank {rank} exited "
+              f"{p.returncode}:\n{err[-3000:]}")
+        reports = [json.loads(ln) for ln in err.splitlines()
+                   if ln.startswith('{"launches"')]
+        check(len(reports) == 1, f"rank {rank} printed {len(reports)} "
+              "launch reports")
+        res.append((err, reports[0]["launches"]))
+    return res, secs
+
+
+# shards of the one card in the sharded phase; the sweeps' tolerance
+# against the f64 finish (f32 r^2 from exact counts: |error| <= 2 r dd /
+# sqrt(p1 q1 p2 q2) with dd <= 1.2e-7, about 5e-6 for allele frequencies
+# in [0.05, 0.95]; 4x margin)
+SHARDS = 4
+SWEEP_TOL = 2e-5
+
+
+def phase_sharded(work, stores, gp, pos, results):
+    """K7 over [cuda:0] * 4 against its plain version (ragged rows, both
+    forms) and against the unsharded K5 (chr21) and K6 (1.1 M, -w
+    1000000), timed beside them; the sharded scan in both layouts against
+    the one-device scan; the cooperative tool run by two processes on the
+    card, and its resume, against the single-process TSV; the three
+    all-pairs sweeps against their one-device run, the f64 finish and
+    K1."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+    from ld_tools_tpu_torch.ops import ld_stream as ls
+    from ld_tools_tpu_torch.ops.exact import exact_ld_elementwise
+    from ld_tools_tpu_torch.parallel import (all_pairs_replicated,
+                                             all_pairs_ring,
+                                             all_pairs_trapezoid)
+
+    dev = torch.device("cuda", 0)
+    mesh = [dev] * SHARDS
+    thres = 0.8 - 5e-4
+    kw = dict(sel=0, exact_mask=True, block_m=BLOCK, block_n=BLOCK)
+    summary = {}
+
+    # K7 against its plain version on the ragged rows, both forms
+    _, rc, rq = _check_rows(gp, pos, N_RAGGED)
+    bi, bj = np.tril_indices(-(-N_RAGGED // BLOCK))
+    cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
+    for res, plain in ((rc, lk.ld_band_count_plain),
+                       (rq, lk.ld_band_count_packed_plain)):
+        rows = tuple(t[:N_RAGGED] for t in (res.g, res.c1, res.ipq, res.pos))
+        copies = tuple(lk.shard_replicas(t, mesh) for t in rows)
+        for use_dist in (False, True):
+            got = lk.ld_band_count_sharded(
+                mesh, *copies, cij, (N_HAP, 1_000_000), (thres,),
+                packed=res.packed, use_dist=use_dist, **kw)
+            ref = plain(*rows, cij, N_HAP, 1_000_000, thres,
+                        use_dist=use_dist, **kw)
+            check(torch.equal(got, ref), f"K7 (packed={res.packed}, dist="
+                  f"{use_dist}) differs from the plain version in "
+                  f"{int((got != ref).sum())} blocks")
+    del rc, rq
+    log(f"K7: {SHARDS} shards on one card equal the plain versions, both "
+        f"forms, with and without the window ({N_RAGGED} ragged rows)")
+
+    # K7, dense form, at chr21 scale against K5
+    v = gp.shape[0]
+    rd = ls.prepare_resident(gp, N_HAP, pos, "cuda", packed=True)
+    bi, bj = ls._scan_blocks(v, pos, BLOCK, None)
+    cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
+    rows = (rd.g, rd.c1, rd.ipq, rd.pos)
+    params = (cij, (N_HAP, 0), (thres,))
+
+    def k5():
+        return lk.ld_band_count(*rows, *params, packed=False, use_dist=False,
+                                **kw)
+
+    def k7(m, copies):
+        return lk.ld_band_count_sharded(m, *copies, *params, packed=False,
+                                        use_dist=False, **kw)
+
+    want = k5()
+    for m in (mesh, ls.scan_mesh()):
+        copies = tuple(lk.shard_replicas(t, m) for t in rows)
+        check(torch.equal(k7(m, copies), want),
+              f"K7 over {len(m)} shard(s) differs from K5 (chr21)")
+    copies = tuple(lk.shard_replicas(t, mesh) for t in rows)
+    ms5 = cuda_ms(k5, reps=3)
+    ms7 = cuda_ms(lambda: k7(mesh, copies), reps=3)
+    ms5 = (ms5 + cuda_ms(k5, reps=3)) / 2
+    b = _count_bound(bi, bj, v, W_DENSE)
+    log(f"K7 ld_band_count_sharded, {SHARDS} shards on one card: "
+        f"{ms7:.3f} ms, K5 unsharded {ms5:.3f} ms, bound {b[0]:.3f} ms "
+        f"({b[1]}) ({len(bi)} blocks, chr21, int8)")
+    del rd, want, cij, rows, params, copies
+    torch.cuda.empty_cache()
+
+    # K7, packed form, at 1.1 M variants with the window against K6
+    gpf, posf = stores["full"]
+    rp = ls.prepare_resident(gpf, N_HAP, posf, "cuda", packed=True)
+    check(rp.packed, "auto must keep the 1.1M-variant store packed")
+    bif, bjf = ls._scan_blocks(gpf.shape[0], posf, BLOCK, 1_000_000)
+    cij = torch.from_numpy(lk.pack_block_coords(bif, bjf)).to(dev)
+    rows = (rp.g, rp.c1, rp.ipq, rp.pos)
+    params = (cij, (N_HAP, 1_000_000), (thres,))
+    copies = tuple(lk.shard_replicas(t, mesh) for t in rows)
+
+    def k6():
+        return lk.ld_band_count(*rows, *params, packed=True, use_dist=True,
+                                **kw)
+
+    def k7p():
+        return lk.ld_band_count_sharded(mesh, *copies, *params, packed=True,
+                                        use_dist=True, **kw)
+
+    check(torch.equal(k7p(), k6()), "K7 differs from K6 (1.1 M, window)")
+    ms6 = cuda_ms(k6, reps=3)
+    ms7p = cuda_ms(k7p, reps=3)
+    ms6 = (ms6 + cuda_ms(k6, reps=3)) / 2
+    bp = _count_bound(bif, bjf, gpf.shape[0], W_PACKED)
+    log(f"K7 ld_band_count_sharded (packed), {SHARDS} shards: {ms7p:.3f} ms, "
+        f"K6 unsharded {ms6:.3f} ms, bound {bp[0]:.3f} ms ({bp[1]}) "
+        f"({len(bif)} blocks, 1.1 M variants, -w 1000000)")
+    del rp, cij, rows, params, copies
+    torch.cuda.empty_cache()
+
+    # the sharded scan against the one-device scan, both layouts
+    k7_launches = 0
+    for layout, extra in (("int8", {}), ("packed", {"resident": "packed"})):
+        skw = dict(G_packed=gp, n_haplotypes=N_HAP, pos=pos, thres=0.8,
+                   device="cuda", **extra)
+        runs = {}
+        for tag, m in (("one", None), ("sharded", mesh)):
+            lk.reset_launches()
+            t0 = time.perf_counter()
+            hits = ls.stream_threshold_scan(mesh=m, **skw)
+            torch.cuda.synchronize()
+            runs[tag] = (hits, time.perf_counter() - t0, _launches())
+        one, shard = runs["one"][0], runs["sharded"][0]
+        check(_same_hits(one, shard) and len(one.i) > 0,
+              f"the sharded scan ({layout}) differs from the one-device scan")
+        st = shard.stats
+        check(st["shards"] == SHARDS
+              and st["blocks_checked"] == st["hit_blocks"] > 0,
+              f"sharded scan ({layout}) stats {st}")
+        sweep = ("ld_band_sweep_kernel<FORM_BITS>" if layout == "packed"
+                 else "ld_band_sweep_kernel")
+        _only_launched(f"the sharded scan ({layout})", runs["sharded"][2],
+                       {"ld_band_count_sharded", sweep})
+        if layout == "int8":
+            k7_launches = runs["sharded"][2]["ld_band_count_sharded"]
+        summary[f"scan_{layout}"] = {
+            tag: dict(hits=len(h.i), seconds=secs, stats=h.stats)
+            for tag, (h, secs, _) in runs.items()}
+        log(f"sharded scan ({layout}): {len(shard.i)} hits, the one-device "
+            f"scan's; {runs['sharded'][1]:.2f}s against "
+            f"{runs['one'][1]:.2f}s; shard blocks {st['shard_blocks']}, "
+            f"hit blocks {st['shard_hit_blocks']}")
+    results["ld_band_count_sharded"] = dict(
+        launches=k7_launches, max_abs_err=0.0, ms=ms7,
+        plain_ms=results["ld_band_count_kernel"]["plain_ms"],
+        bound_ms=b[0], bound_by=b[1], library_ms=None,
+        int_mm_ms=results["ld_band_count_kernel"]["int_mm_ms"],
+        path=f"stream_threshold_scan(mesh=[cuda:0]*{SHARDS}), chr21, int8 "
+             "layout (launches); plain_ms: the plain count over the "
+             "unsharded list, timed in the scan-shapes phase",
+        shape=f"{len(bi)} blocks of {BLOCK}x{BLOCK} over {SHARDS} shards on "
+              f"one card, W={W_DENSE} int8, integer mask",
+        extra=dict(k5_ms=ms5, packed_ms=ms7p, packed_k6_ms=ms6,
+                   packed_bound_ms=bp[0], packed_bound_by=bp[1],
+                   packed_shape=f"{len(bif)} blocks, 1.1 M variants packed "
+                                "(W=640 bytes), -w 1000000"))
+
+    # the cooperative tool on the card, then its resume
+    with open(stores["chr21_tsv"], "rb") as fh:
+        solo = fh.read()
+    ckpt = os.path.join(work, "coop_ckpt")
+    for tag in ("cooperative", "resume"):
+        out = os.path.join(work, f"coop_{tag}")
+        ranks, secs = _run_pair(["-C", "21", "-D", stores["chr21"], "-t", out,
+                                 "-z", "0.8", "-f", "-E", "cuda", "-d", "2",
+                                 "-k", ckpt])
+        (name,) = os.listdir(out)  # rank 0 alone writes
+        with open(os.path.join(out, name), "rb") as fh:
+            check(fh.read() == solo, f"the {tag} run's TSV differs from the "
+                  "single-process TSV")
+        phases = []
+        for rank, (err, launches) in enumerate(ranks):
+            # the scan's own phase line (ops/ld_stream.py logs it)
+            (line,) = [ln for ln in err.splitlines() if "scan phases: " in ln]
+            phases.append(dict(kv.split("=", 1) for kv in
+                               line.split("scan phases: ", 1)[1].split()))
+            if tag == "cooperative":
+                _only_launched(f"cooperative rank {rank}", launches,
+                               {"ld_band_count_sharded", "ld_band_sweep_blocks"})
+            else:
+                check(not any(launches.values()) and "resumed batch" in err,
+                      f"resume rank {rank} launched {launches}")
+        summary[tag] = dict(seconds=secs, launches=[l for _, l in ranks],
+                            phases=phases)
+        log(f"{tag} ld_scan (2 processes, gloo, -d 2 -k, one card): "
+            f"{secs:.2f}s; rank 0's TSV is the single-process TSV")
+    shutil.rmtree(stores["chr21"], ignore_errors=True)
+
+    # the all-pairs sweeps against their one-device run
+    G = triangle_host()
+    t0 = time.perf_counter()
+    one_r2, one_dp = all_pairs_replicated(G, mesh=[dev])
+    torch.cuda.synchronize()
+    sweeps = {"one": time.perf_counter() - t0}
+    for name, fn in (("replicated", all_pairs_replicated),
+                     ("ring", all_pairs_ring),
+                     ("trapezoid", all_pairs_trapezoid)):
+        t0 = time.perf_counter()
+        r2, dp = fn(G, mesh=mesh)
+        torch.cuda.synchronize()
+        sweeps[name] = time.perf_counter() - t0
+        if name == "trapezoid":
+            ok = (torch.equal(r2, torch.tril(one_r2))
+                  and torch.equal(dp + 0.0, torch.tril(one_dp))
+                  and not bool(torch.triu(r2, 1).any()))
+        else:
+            ok = torch.equal(r2, one_r2) and torch.equal(dp, one_dp)
+        check(ok, f"the {name} sweep over {SHARDS} shards differs from the "
+              "one-device sweep")
+        del r2, dp
+    v1 = G.shape[0]
+    rng = np.random.default_rng(9)
+    a = rng.integers(1, v1, size=4000)
+    bb = (a * rng.random(4000)).astype(np.int64)
+    gpk = np.packbits(G.astype(np.uint8), axis=1)
+    from ld_tools_tpu_torch.ingest import pack
+
+    c1 = pack.popcounts(gpk)
+    cab = pack.popcounts(np.bitwise_and(gpk[a], gpk[bb]))
+    ex = exact_ld_elementwise(cab, c1[a], c1[bb], N_HAP)
+    got = one_r2[torch.from_numpy(a).to(dev),
+                 torch.from_numpy(bb).to(dev)].cpu().numpy()
+    err = float(np.abs(got - ex.r_square).max())
+    check(err <= SWEEP_TOL, f"sweep r^2 vs the f64 finish: max abs err {err}")
+    r2_k1, _ = lk.ld_triangle_matrix(torch.from_numpy(G).to(dev), N_HAP,
+                                     epilogue="exact", want_dprime=False)
+    err_k1 = float((torch.tril(one_r2) - torch.tril(r2_k1)).abs().max())
+    check(err_k1 <= SWEEP_TOL, f"sweep r^2 vs K1: max abs err {err_k1}")
+    summary["sweeps"] = dict(seconds=sweeps, f64_max_abs_err=err,
+                             k1_max_abs_err=err_k1, tol=SWEEP_TOL)
+    log(f"sweeps ({v1} x {N_HAP}, {SHARDS} shards on one card): "
+        + ", ".join(f"{k} {t:.3f}s" for k, t in sweeps.items())
+        + f"; each equals the one-device sweep; r^2 within {err:.3g} of the "
+          f"f64 finish (4,000 pairs) and {err_k1:.3g} of K1 (tolerance "
+          f"{SWEEP_TOL})")
+    del one_r2, one_dp, r2_k1
+    torch.cuda.empty_cache()
+    return summary
 
 
 def phase_parity(work):
@@ -1082,7 +1422,9 @@ def main():
     phase_scan_shapes(gp, pos, results)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
-        scan = phase_scan(work, gp, pos, results)
+        scan, stores = phase_scan(work, gp, pos, results)
+        sharded = phase_sharded(work, stores, gp, pos, results)
+        del stores
         phase_parity(work)
         torch.cuda.empty_cache()  # the bench processes share the card
         headline = phase_bench(work, results)
@@ -1099,10 +1441,10 @@ def main():
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], int_mm_ms=r["int_mm_ms"],
-            path=r["path"], shape=r["shape"],
+            path=r["path"], shape=r["shape"], **r.get("extra", {}),
         ))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"build_s": build_s, "scan": scan,
+    print(json.dumps({"build_s": build_s, "scan": scan, "sharded": sharded,
                       "headline": headline}, default=float))
     print(json.dumps({"kernels": kernels}))
     print(smi)

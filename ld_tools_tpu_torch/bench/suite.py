@@ -158,7 +158,8 @@ def config4(rec, dev):
             run_no += 1
             gpps = pairs / dt / 1e9
             label = tag + ("_warm" if warm else "")
-            phases = {k: round(s, 2) for k, s in (hits.stats or {}).items()}
+            phases = {k: round(s, 2) if isinstance(s, float) else s
+                      for k, s in (hits.stats or {}).items()}
             print(f"config{label}: {dt:.1f}s, {gpps:.1f} Gpairs/s, "
                   f"{len(hits.i)} hits, phases={phases}")
             rec.record(label, dt, gpairs_per_s=round(gpps, 2),
@@ -174,7 +175,8 @@ def config4c(rec, dev):
     for run_no, warm in enumerate((False, True)):
         hits, dt = _scan(gp, H, pos, run_no, True, ("bench4c", V, H), dev)
         label = "4c_chr2_scan_200k" + ("_warm" if warm else "")
-        phases = {k: round(s, 2) for k, s in (hits.stats or {}).items()}
+        phases = {k: round(s, 2) if isinstance(s, float) else s
+                  for k, s in (hits.stats or {}).items()}
         count_rate = pairs / max(hits.stats["count_s"], 1e-9) / 1e9
         print(f"config{label}: {dt:.1f}s, {pairs / dt / 1e9:.1f} Gpairs/s "
               f"end-to-end, count phase {count_rate:.1f} Gpairs/s, "

@@ -4,7 +4,15 @@ scan on the GPU.
     python -m ld_tools_tpu_torch.ld_scan -C 21 -D <data dir> -t <out dir> -z 0.8
 
 ``-E cuda`` (the default) runs the hand-written kernels on the card;
-``-E torch`` runs their plain PyTorch versions on the CPU.
+``-E torch`` runs their plain PyTorch versions on the CPU.  ``-d N``
+shards each scan over N local devices, ``-k <dir>`` keeps per-batch
+checkpoints to resume from, and under ``torchrun`` (gloo) the processes
+scan one chromosome together:
+
+    torchrun --nproc_per_node 2 -m ld_tools_tpu_torch.ld_scan -C 21 ...
+
+Run as a module it prints its kernel launch counts as one JSON line on
+stderr at the end.
 """
 
 __version__ = "V1.0-torch"
@@ -25,3 +33,6 @@ def main(argv=None):
 
 if __name__ == "__main__":
     main()
+    from ld_tools_tpu_torch.bench.common import log_launches
+
+    log_launches()

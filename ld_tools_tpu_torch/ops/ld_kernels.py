@@ -27,6 +27,7 @@ Map to ld_pallas.py (by line):
   ld_band_count       :1014  launches ld_band_count_kernel (K5), or hands
                              packed rows to ld_band_count_packed (K6)
   pack_block_coords   :1115  host numpy
+  ld_band_count_sharded :1206  K5/K6 per shard over a device list (K7)
   ld_band_pallas      :1236  wrapper over ld_band_sweep
   ld_band_pallas_packed :1268  wrapper over ld_band_sweep(packed=True)
 
@@ -42,6 +43,10 @@ count pass, and each has a ``*_plain`` twin:
   ld_band_sweep_blocks_packed K4   _band_sweep_kernel, packed (:693)
   ld_band_count               K5   _band_count_kernel, dense (:909)
   ld_band_count_packed        K6   _band_count_kernel, packed (:949)
+  ld_band_count_sharded       K7   ld_band_count_sharded (:1206): K5 or
+                                   K6 on each shard's slice of the
+                                   block list, each shard on its
+                                   device and stream
   ld_stage_blocks             K8   the staged triangle kernel of
                                    scripts/bench_microkernels.py (:76),
                                    K1's kernel at four epilogues
@@ -124,8 +129,15 @@ def _f32_inv(n) -> tuple:
     return float(n_f), float(np.float32(1.0) / n_f)
 
 
-def _stream_ptr(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+def _launch(entry: str, dev: torch.device, *args) -> int:
+    """Call the library's entry point ``entry`` with ``dev`` the CUDA
+    runtime's current device and its current stream as the last argument;
+    returns the entry point's CUDA error code.  Without the guard a launch
+    for a tensor on a second card would run on whichever card the runtime
+    has current."""
+    with torch.cuda.device(dev):
+        return getattr(_cuda_build.lib(), entry)(
+            *args, torch.cuda.current_stream(dev).cuda_stream)
 
 
 def _check_matrix(g: torch.Tensor, name: str, packed: bool = False) -> None:
@@ -495,11 +507,11 @@ def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
     if cij.shape[0]:
         _check_grid(cij.shape[0], block_m, block_n)
         n_f, inv_n = _f32_inv(n_haplotypes)
-        err = _cuda_build.lib().ldk_triangle(
-            g_pad.data_ptr(), c1.data_ptr(), ipq.data_ptr(), cij.data_ptr(),
-            cij.shape[0], v, w, block_m, block_n, n_f, inv_n,
-            EPILOGUES.index(epilogue), form, r2.data_ptr(),
-            dp.data_ptr() if dp is not None else None, _stream_ptr(g_pad),
+        err = _launch(
+            "ldk_triangle", g_pad.device, g_pad.data_ptr(), c1.data_ptr(),
+            ipq.data_ptr(), cij.data_ptr(), cij.shape[0], v, w, block_m,
+            block_n, n_f, inv_n, EPILOGUES.index(epilogue), form,
+            r2.data_ptr(), dp.data_ptr() if dp is not None else None,
         )
         _cuda_build.check(err, f"ld_triangle_kernel (form {form}, "
                                f"epilogue {epilogue})")
@@ -736,12 +748,12 @@ def _band_sweep_launch(site, form, g_rows, g_cols, c1_rows, c1_cols,
     n_f, inv_n = _f32_inv(n_haplotypes)
     ptr = {o: (out[o].data_ptr() if o in out else None)
            for o in BAND_OUT_DTYPES}
-    err = _cuda_build.lib().ldk_band_sweep(
-        g_rows.data_ptr(), g_cols.data_ptr(), c1_rows.data_ptr(),
-        c1_cols.data_ptr(), ipq_rows.data_ptr(), ipq_cols.data_ptr(),
-        cij.data_ptr(), nb, g_rows.shape[0], g_cols.shape[0],
-        g_rows.shape[1], block_m, block_n, n_f, inv_n, sel, form,
-        ptr["cab"], ptr["r2"], ptr["dp"], ptr["meas"], _stream_ptr(g_rows),
+    err = _launch(
+        "ldk_band_sweep", g_rows.device, g_rows.data_ptr(),
+        g_cols.data_ptr(), c1_rows.data_ptr(), c1_cols.data_ptr(),
+        ipq_rows.data_ptr(), ipq_cols.data_ptr(), cij.data_ptr(), nb,
+        g_rows.shape[0], g_cols.shape[0], g_rows.shape[1], block_m, block_n,
+        n_f, inv_n, sel, form, ptr["cab"], ptr["r2"], ptr["dp"], ptr["meas"],
     )
     _cuda_build.check(err, f"ld_band_sweep_kernel (form {form})")
     site.launches += 1
@@ -863,12 +875,12 @@ def _count_launch(site, form, g, c1, ipq, pos, cij, n_hap, max_dist, thres,
         return out
     _check_grid(nb, block_m, block_n)
     n_f, inv_n = _f32_inv(n_hap)
-    err = _cuda_build.lib().ldk_band_count(
-        g.data_ptr(), c1.data_ptr(), ipq.data_ptr(), pos.data_ptr(),
-        cij.data_ptr(), nb, g.shape[0], g.shape[1], block_m, block_n, n_hap,
-        n_f, inv_n, thres, max_dist if use_dist else 0, sel,
-        int(exact_mask), int(use_dist), form, out.data_ptr(),
-        _stream_ptr(g),
+    err = _launch(
+        "ldk_band_count", g.device, g.data_ptr(), c1.data_ptr(),
+        ipq.data_ptr(), pos.data_ptr(), cij.data_ptr(), nb, g.shape[0],
+        g.shape[1], block_m, block_n, n_hap, n_f, inv_n, thres,
+        max_dist if use_dist else 0, sel, int(exact_mask), int(use_dist),
+        form, out.data_ptr(),
     )
     _cuda_build.check(err, f"ld_band_count_kernel (form {form})")
     site.launches += 1
@@ -965,11 +977,137 @@ def ld_band_count_packed(gp_dev, c1_dev, ipq_dev, pos_dev, cij, params_i,
 
 ld_band_count_packed.launches = 0
 
+
+def _device(d) -> torch.device:
+    """``d`` as a torch.device; a bare "cuda" names the current card, so
+    that equal devices compare (and hash) equal."""
+    d = torch.device(d)
+    if d.type == "cuda" and d.index is None:
+        d = torch.device("cuda", torch.cuda.current_device())
+    return d
+
+
+def shard_devices(devices) -> list:
+    """A shard list as torch.devices: one device per shard, a device may
+    repeat ([cuda:0] * 4 is four shards on one card); every device of one
+    kind."""
+    devices = [_device(d) for d in devices]
+    if not devices:
+        raise ValueError("a shard list needs at least one device")
+    if len({d.type for d in devices}) != 1:
+        raise ValueError(f"shards mix device kinds: {devices}")
+    return devices
+
+
+def shard_slices(n: int, n_shards: int) -> list:
+    """Contiguous [lo, hi) slices of n items over n_shards shards, in
+    order: ceil(n / n_shards) each, the last ones shorter or empty.  The
+    real prefix of each per-device slice of JAX's split
+    (ld_stream.py:547-579), whose padding the port does not need: the
+    kernels take any number of blocks."""
+    loc = -(-n // n_shards)
+    return [(min(s * loc, n), min((s + 1) * loc, n)) for s in range(n_shards)]
+
+
+def shard_replicas(t: torch.Tensor, devices) -> dict:
+    """{device: tensor}: one copy of ``t`` on each distinct device of the
+    shard list ``devices`` (``t`` itself where it already lies), the form
+    in which :func:`ld_band_count_sharded` takes its resident tensors."""
+    out = {}
+    for d in shard_devices(devices):
+        if d not in out:
+            out[d] = t if t.device == d else t.to(d)
+    return out
+
+
+def _replica(copies, dev: torch.device) -> torch.Tensor:
+    """The copy on ``dev`` of a {device: tensor} map; raises where the map
+    has none there: a shard never copies the resident matrix itself."""
+    if not isinstance(copies, dict):
+        raise TypeError("ld_band_count_sharded takes each resident tensor as "
+                        "a {device: tensor} map of per-device copies "
+                        "(shard_replicas)")
+    t = {_device(d): x for d, x in copies.items()}.get(dev)
+    if t is None or t.device != dev:
+        where = "none" if t is None else f"it lies on {t.device}"
+        raise ValueError(f"no resident copy on the shard's device {dev} "
+                         f"({where})")
+    return t
+
+
+# one CUDA stream per (card, shard): the shards of one card overlap
+_SHARD_STREAMS = {}
+
+
+def _shard_stream(dev: torch.device, shard: int):
+    key = (dev, shard)
+    if key not in _SHARD_STREAMS:
+        _SHARD_STREAMS[key] = torch.cuda.Stream(device=dev)
+    return _SHARD_STREAMS[key]
+
+
+def ld_band_count_sharded(devices, g_dev, c1_dev, ipq_dev, pos_dev, cij,
+                          params_i, params_f, *, packed: bool, sel: int,
+                          exact_mask: bool, use_dist: bool,
+                          block_m: int = 640, block_n: int = 640):
+    """Per-block hit counts of :func:`ld_band_count` over a list of shards
+    (ld_pallas.ld_band_count_sharded, K7: a shard_map of the count kernel
+    over a 1-D mesh).
+
+    ``devices`` holds one device per shard and may repeat a device.  The
+    block list ``cij`` splits into contiguous slices (:func:`shard_slices`);
+    shard s counts its slice on ``devices[s]`` with K5 (or, ``packed``,
+    K6) on that device's resident tensors: ``g_dev`` .. ``pos_dev`` are
+    {device: tensor} maps holding a copy on every device of the list
+    (:func:`shard_replicas`); a missing copy raises, none is made here.
+    ``cij`` lies on the shards' kind of device (each shard takes its slice
+    to its own card).  On the card each shard launches on its own stream,
+    every shard before any is waited for, and each card's current stream
+    then waits for its shards.  The (len(cij),) int32 counts come back in
+    global block order on ``devices[0]``.  CPU tensors run the plain
+    versions.  ``launches`` counts shard launches.
+    """
+    devices = shard_devices(devices)
+    n_hap, max_dist, thres = _count_params(params_i, params_f)
+    kw = dict(sel=sel, exact_mask=exact_mask, use_dist=use_dist,
+              block_m=block_m, block_n=block_n)
+    cij = torch.as_tensor(cij)
+    if cij.device.type != devices[0].type:
+        raise ValueError(f"the block list lies on {cij.device}, the shards "
+                         f"on {devices[0].type}")
+    slices = shard_slices(cij.shape[0], len(devices))
+    shards = [[_replica(t, dev) for t in (g_dev, c1_dev, ipq_dev, pos_dev)]
+              + [cij[lo:hi].to(dev)]
+              for dev, (lo, hi) in zip(devices, slices)]
+    if not _on_card(*shards[0]):
+        plain = ld_band_count_packed_plain if packed else ld_band_count_plain
+        return torch.cat([plain(*args, n_hap, max_dist, thres, **kw)
+                          for args in shards])
+    form = _cuda_build.FORM_BITS if packed else _cuda_build.FORM_S8
+    outs, streams = [], []
+    for s, (dev, args) in enumerate(zip(devices, shards)):
+        with torch.cuda.device(dev):
+            cur = torch.cuda.current_stream(dev)
+            stream = _shard_stream(dev, s)
+            stream.wait_stream(cur)  # the resident tensors and cij are ready
+            with torch.cuda.stream(stream):
+                out = _count_launch(ld_band_count_sharded, form, *args,
+                                    n_hap, max_dist, thres, **kw)
+            out.record_stream(cur)  # read on the current stream after the join
+        outs.append(out)
+        streams.append(stream)
+    for dev, stream in zip(devices, streams):
+        torch.cuda.current_stream(dev).wait_stream(stream)
+    return torch.cat([o.to(devices[0]) for o in outs])
+
+
+ld_band_count_sharded.launches = 0
+
 LAUNCH_SITES = (
     ld_triangle_blocks, ld_triangle_blocks_bf16, ld_triangle_blocks_tf32,
     ld_triangle_blocks_packed, ld_band_sweep_blocks,
     ld_band_sweep_blocks_packed, ld_band_count, ld_band_count_packed,
-    ld_stage_blocks,
+    ld_band_count_sharded, ld_stage_blocks,
 )
 
 

@@ -1,32 +1,35 @@
 """Chromosome-scale streamed all-pairs scan with on-device thresholding.
 
-Counterpart of ld_tools_tpu/ops/ld_stream.py for one device and one
-process.  The genotype matrix goes to the device once (``prepare_resident``)
-in one of two layouts, chosen as the JAX scan chooses them: the store's
-bitpacked bytes inflated to int8 on the device (chr21 scale is 115,200 x
-5,120 int8 = 590 MB), or, past ``TPU_LD_DENSE_RESIDENT_BYTES`` of int8
-(4 GiB by default: some 839,000 variants of 5,008 haplotypes), kept
-packed (a 1.1M-variant chromosome is 713 MB packed, 5.7 GB inflated).
-Then:
+Counterpart of ld_tools_tpu/ops/ld_stream.py.  The genotype matrix goes to
+the device once (``prepare_resident``) in one of two layouts, chosen as
+the JAX scan chooses them: the store's bitpacked bytes inflated to int8 on
+the device (chr21 scale is 115,200 x 5,120 int8 = 590 MB), or, past
+``TPU_LD_DENSE_RESIDENT_BYTES`` of int8 (4 GiB by default: some 839,000
+variants of 5,008 haplotypes), kept packed (a 1.1M-variant chromosome is
+713 MB packed, 5.7 GB inflated).  The work follows the JAX scan's tiles
+(band x chunk, ``max_tiles_per_call`` a batch); inside a batch:
 
 - pass 1 counts the kept pairs of every ``count_block``-square block of
-  the lower triangle with the fused count kernel (``ld_band_count``:
-  K5 on int8 rows, K6 on packed bytes): one int32 per block leaves the
-  device;
+  the lower triangle with the fused count kernel (``ld_band_count``: K5
+  on int8 rows, K6 on packed bytes; over a shard list K7,
+  ``ld_band_count_sharded``): one int32 per block leaves the device;
 - pass 2 sweeps only the blocks that have hits with the band kernel
-  (``ld_band_sweep_blocks`` K3, or ``ld_band_sweep_blocks_packed`` K4)
-  in batches, rebuilds the same keep mask
-  from its outputs, compacts the survivors with ``torch.nonzero``
-  (row-major, like the JAX package's ``_compact_true_positions``) and
-  checks every block's pass-2 hits against its pass-1 count;
+  (``ld_band_sweep_blocks`` K3, or ``ld_band_sweep_blocks_packed`` K4),
+  split over the shards, rebuilds the same keep mask from its outputs,
+  compacts the survivors with ``torch.nonzero`` (row-major, like the JAX
+  package's ``_compact_true_positions``) and checks every block's pass-2
+  hits against its pass-1 count;
+- a finished batch's hits may go to a checkpoint file, from which a later
+  call resumes; a cooperative scan over a torch.distributed group splits
+  the tiles over the processes and gathers the hits at the end;
 - exact scans re-finish the hits in f64 on the host from their integer
   counts (``_exact_refilter_counts``), fast scans return the f32 values.
 
-One tiling serves both devices.  The JAX tile path (band x chunk tiles,
-bucketed fetches, over-cap sub-tiles) has no counterpart: a block of at
-most 2048^2 cells can never exceed the JAX ``cap_per_tile`` (1 << 22),
-and ``torch.nonzero`` sizes its own output.  The final lexsort makes the
-output order independent of the tiling.
+The JAX fetch machinery (bucketed fetches, over-cap sub-tiles) has no
+counterpart: a block of at most 2048^2 cells can never exceed the JAX
+``cap_per_tile`` (1 << 22), and ``torch.nonzero`` sizes its own output.
+The final lexsort makes the output order independent of the tiling, the
+shards and the processes.
 """
 
 from __future__ import annotations
@@ -44,13 +47,18 @@ from ld_tools_tpu_torch.ops.exact import exact_ld_elementwise, round4
 from ld_tools_tpu_torch.ops.ld_kernels import (
     block_keep_mask,
     ld_band_count,
+    ld_band_count_sharded,
     ld_band_sweep_blocks,
     ld_band_sweep_blocks_packed,
     mask_source,
     pack_block_coords,
+    shard_devices,
+    shard_slices,
     unpack_rows_device,
 )
-from ld_tools_tpu_torch.utils.device import resolve_device
+from ld_tools_tpu_torch.utils.device import device_guard, resolve_device
+from ld_tools_tpu_torch.utils.distributed import (local_device, process_count,
+                                                  process_index)
 from ld_tools_tpu_torch.utils.logging import get_logger
 
 log = get_logger("ops.ld_stream")
@@ -130,8 +138,8 @@ class Resident:
 
 
 def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
-                     packed: bool = False,
-                     resident: str = "auto") -> Resident:
+                     packed: bool = False, resident: str = "auto",
+                     band: int = _BAND, chunk: int = _CHUNK) -> Resident:
     """Turn the store's host arrays into the scan's device tensors.
 
     ``G_or_packed`` is int8 (V, H) {0,1}, or with ``packed=True`` the
@@ -140,9 +148,10 @@ def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
     "dense", or "auto" and the inflated matrix (v_pad * w_bytes * 8)
     stays within :func:`dense_resident_limit`; otherwise (and always for
     "packed") they stay packed.  This is the JAX scan's rule
-    (ld_stream.py:1108-1127).  Padding follows the JAX scan at its
-    default tiling: V_pad = round_up(V, max(band, chunk)) + max(band,
-    chunk), the haplotype axis to a multiple of 128 (bytes, when packed).
+    (ld_stream.py:1108-1127).  Padding follows the JAX scan at the tiling
+    ``band`` x ``chunk`` (clamped as the scan clamps it): V_pad =
+    round_up(V, max(band, chunk)) + max(band, chunk), the haplotype axis
+    to a multiple of 128 (bytes, when packed).
     """
     if resident not in _RESIDENT_MODES:
         raise ValueError(f"resident must be one of {_RESIDENT_MODES}, "
@@ -158,8 +167,8 @@ def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
         v, h = src.shape
         c1_full = src.astype(np.int64).sum(axis=1)
         w = _round_up(h, 128)
-    band = min(_BAND, _round_up(v, 256))
-    chunk = min(_CHUNK, _round_up(v, 512))
+    band = min(band, _round_up(v, 256))
+    chunk = min(chunk, _round_up(v, 512))
     v_pad = _round_up(v, max(band, chunk)) + max(band, chunk)
     g_host = np.zeros((v_pad, w), dtype=src.dtype)
     g_host[:v, : src.shape[1]] = src
@@ -251,6 +260,117 @@ def _scan_blocks(v: int, pos: np.ndarray, count_block: int, max_dist):
     return bi, bj
 
 
+def _scan_tiles(v, pos, band, chunk, bi, bj, count_block, max_dist):
+    """The scan's tiles and the tile of each block.
+
+    Tiles are the JAX scan's ``band`` x ``chunk`` tiles in its order (row
+    bands, then column chunks up to the diagonal) with its whole-tile
+    distance pruning (ld_stream.py:1139-1152).  A block belongs to the
+    tile that holds its top-left cell.  A tile the pruning drops is kept
+    all the same when it holds a block that can hold a kept pair, which
+    happens only when ``count_block`` does not divide the tiling.
+    Returns (tiles: [(r0, c0)], home: each block's index into tiles)."""
+    n_r, n_c = -(-v // band), -(-v // chunk)
+    tr = bi.astype(np.int64) * count_block // band
+    tc = bj.astype(np.int64) * count_block // chunk
+    has_block = np.zeros((n_r, n_c), dtype=bool)
+    has_block[tr, tc] = True
+    tiles = []
+    for r0 in range(0, v, band):
+        nr = min(band, v - r0)
+        for c0 in range(0, r0 + nr, chunk):
+            if max_dist is not None:
+                last = min(c0 + chunk, v) - 1
+                if (last < r0 and int(pos[r0]) - int(pos[last]) > max_dist
+                        and not has_block[r0 // band, c0 // chunk]):
+                    continue
+            tiles.append((r0, c0))
+    index = np.full((n_r, n_c), -1, dtype=np.int64)
+    for k, (r0, c0) in enumerate(tiles):
+        index[r0 // band, c0 // chunk] = k
+    return tiles, index[tr, tc]
+
+
+def _replicate(res: Resident, devices) -> dict:
+    """{device: Resident}: one resident copy per distinct device."""
+    out = {}
+    for d in devices:
+        if d not in out:
+            out[d] = res if res.g.device == d else dataclasses.replace(
+                res, g=res.g.to(d), c1=res.c1.to(d), ipq=res.ipq.to(d),
+                pos=res.pos.to(d))
+    return out
+
+
+def _scan_devices(mesh, device) -> list:
+    """The scan's shard devices: ``mesh`` (one device per shard, a device
+    may repeat) or the one ``device``; each resolved, so a card that is
+    not there raises."""
+    devices = [device] if mesh is None else list(mesh)
+    return shard_devices([resolve_device(d) for d in devices])
+
+
+def scan_mesh(n_devices=None, device="cuda") -> list:
+    """The shard list of this process's local devices for a sharded scan
+    (ld_stream.scan_mesh): every visible card, or under a multi-process
+    launcher this process's card (``cuda:(LOCAL_RANK % device_count)``);
+    on the CPU, the CPU.  ``n_devices`` takes the first n of them, as in
+    JAX, and where n exceeds them the devices repeat: ``scan_mesh(4)`` on
+    one card is four shards on it.  Local on purpose, as in JAX: each
+    process shards its own tiles over its own cards and the hits of a
+    cooperative scan meet on the host."""
+    dev = resolve_device(device)
+    own = local_device(dev)
+    if dev.type == "cpu":
+        local = [dev]
+    elif own is not None:
+        local = [own]
+    else:
+        local = [torch.device("cuda", k)
+                 for k in range(torch.cuda.device_count())]
+    if n_devices is None:
+        return local
+    return [local[k % len(local)] for k in range(int(n_devices))]
+
+
+def _allgather_hits(arrs: dict, want) -> dict:
+    """Concatenate every process's hit arrays over the torch.distributed
+    group (ld_stream._allgather_hits): the sizes first, then each array
+    padded to the largest, then trimmed per process.  gloo gathers no
+    int16, so every array travels as its bytes and gets its dtype back;
+    a hit-less process sends arrays of the same dtypes (the ``cab`` rule)."""
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    n_local = torch.tensor([arrs["i"].shape[0]], dtype=torch.int64)
+    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(world)]
+    dist.all_gather(sizes, n_local)
+    sizes = [int(x) for x in sizes]
+    cap = max(sizes)
+    if cap == 0:
+        return arrs
+    out = {}
+    for name in ("i", "j") + tuple(want):
+        a = arrs[name]
+        pad = np.zeros((cap,), dtype=a.dtype)
+        pad[:a.shape[0]] = a
+        buf = torch.from_numpy(pad.view(np.uint8))
+        bufs = [torch.empty_like(buf) for _ in range(world)]
+        dist.all_gather(bufs, buf)
+        out[name] = np.concatenate([
+            b.numpy().view(a.dtype)[:n] for b, n in zip(bufs, sizes)])
+    return out
+
+
+def _empty_arrays(want, cab_np) -> dict:
+    out = {"i": np.zeros((0,), dtype=np.int64),
+           "j": np.zeros((0,), dtype=np.int64)}
+    for name in want:
+        out[name] = np.zeros((0,), dtype=cab_np if name == "cab"
+                             else np.float32)
+    return out
+
+
 def stream_threshold_scan(
     G=None,
     pos=None,
@@ -260,7 +380,10 @@ def stream_threshold_scan(
     measure: str = "r_square",
     thres: float,
     max_dist=None,
+    band: int = _BAND,
+    chunk: int = _CHUNK,
     count_block: int = 640,
+    max_tiles_per_call: int = 512,
     exact: bool = True,
     checkpoint_dir=None,
     mesh=None,
@@ -284,30 +407,43 @@ def stream_threshold_scan(
     depend on it.  ``resident_key`` opts the device tensors into a small
     cross-call cache.
 
-    Not ported yet, and refused rather than ignored: ``checkpoint_dir``
-    (ROADMAP queue 6), ``mesh`` (queue 8) and ``multiprocess`` (queue 8).
+    The work goes in the JAX scan's order: ``band`` x ``chunk`` tiles,
+    ``max_tiles_per_call`` tiles a batch, each block of the count tiling
+    in the tile of its top-left cell.  Every batch's count pass is
+    launched before any is read.  ``band`` and ``chunk`` keep the JAX
+    scan's keywords and defaults so that tests can shrink the tiling as
+    the JAX tests do; the tool and its CLI leave them at the defaults.
+
+    ``mesh`` (a sequence of devices, one per shard, a device may repeat;
+    see :func:`scan_mesh`) shards each batch: the count pass runs K7
+    (:func:`ld_band_count_sharded`) over contiguous slices of the batch's
+    blocks, and the hit blocks split contiguously over the shards for
+    pass 2.  Each distinct device holds one resident copy; the mesh then
+    takes the place of ``device``.  ``multiprocess=True`` under an
+    initialised torch.distributed group takes this process's strided
+    share of the tiles (``tiles[rank::world]``) and gathers every
+    process's hits at the end, so every process returns the identical
+    full hit set; all processes must make the call.  ``checkpoint_dir``
+    keeps each finished batch's hits in ``scan_{fp}_batch{k}.npz`` (``fp``
+    fingerprints the inputs, the tiling and the process's share, not the
+    mesh) and a later call with the same fingerprint loads them instead
+    of scanning the batch again.  The hits depend on none of these.
     """
-    if checkpoint_dir is not None:
-        raise NotImplementedError(
-            "scan checkpoints are not ported yet (ROADMAP queue 6)")
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh-sharded scans are not ported yet (ROADMAP queue 8)")
-    if multiprocess:
-        raise NotImplementedError(
-            "cooperative multi-process scans are not ported yet "
-            "(ROADMAP queue 8)")
     if resident not in _RESIDENT_MODES:
         raise ValueError(f"resident must be one of {_RESIDENT_MODES}, "
                          f"got {resident!r}")
     if not 0 < count_block <= _MAX_COUNT_BLOCK:
         raise ValueError(
             f"count_block must be in (0, {_MAX_COUNT_BLOCK}], got {count_block}")
+    if max_tiles_per_call < 1:
+        raise ValueError("max_tiles_per_call must be at least 1")
     assert count_block * count_block <= _CAP_PER_TILE
-    dev = resolve_device(device)
+    devices = _scan_devices(mesh, device)
+    dev = devices[0]
+    n_shards = len(devices)
 
     stats = {"host_prep_s": 0.0, "upload_s": 0.0, "count_s": 0.0,
-             "fetch_s": 0.0, "finish_s": 0.0}
+             "fetch_s": 0.0, "finish_s": 0.0, "shards": n_shards}
     t0 = time.perf_counter()
     packed = G_packed is not None
     if packed:
@@ -329,6 +465,8 @@ def stream_threshold_scan(
     if pos is None:
         pos = np.arange(v, dtype=np.int64)
     pos = np.asarray(pos, dtype=np.int64)
+    band = min(band, _round_up(v, 256))
+    chunk = min(chunk, _round_up(v, 512))
     sel = 0 if measure == "r_square" else 1
     margin_thres = float(thres) - 5e-4
     use_dist = max_dist is not None
@@ -345,6 +483,8 @@ def stream_threshold_scan(
                 "[0, 2^30); sort the variants (the packed store always "
                 "is) or drop max_dist"
             )
+    pos_sha = (None if resident_key is None and checkpoint_dir is None else
+               hashlib.sha256(np.ascontiguousarray(pos).tobytes()).hexdigest())
 
     cache_key = None
     if resident_key is not None:
@@ -352,20 +492,23 @@ def stream_threshold_scan(
         layout = (resident, dense_resident_limit() if resident == "auto"
                   else None)
         cache_key = (
-            resident_key, packed, v, h, int(n_haplotypes), layout, str(dev),
-            hashlib.sha256(np.ascontiguousarray(pos).tobytes()).hexdigest(),
+            resident_key, packed, v, h, int(n_haplotypes), band, chunk,
+            layout, tuple(str(d) for d in dict.fromkeys(devices)), pos_sha,
         )
     res = _resident_cache_get(cache_key) if cache_key is not None else None
     stats["resident_hit"] = 1.0 if res is not None else 0.0
     stats["host_prep_s"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     if res is None:
-        res = prepare_resident(src, n_haplotypes, pos, dev, packed=packed,
-                               resident=resident)
+        res = _replicate(prepare_resident(
+            src, n_haplotypes, pos, dev, packed=packed, resident=resident,
+            band=band, chunk=chunk), devices)
         if cache_key is not None:
             _resident_cache_put(cache_key, res)
-    _sync(dev)
+    for d in res:
+        _sync(d)
     stats["upload_s"] = time.perf_counter() - t0
+    main = res[dev]
 
     n_hap = int(n_haplotypes)
     exact_mask = n_hap <= _EXACT_MASK_MAX_HAP
@@ -376,78 +519,133 @@ def stream_threshold_scan(
     outs = (mask_src,) + tuple(x for x in want if x != mask_src)
     # counts are bounded by the haplotype axis (in bits when packed, as
     # at JAX ld_stream.py:1177): int16 halves the per-hit bytes of the
-    # exact fetch (downcast after the mask has used int32)
-    cab_dtype = torch.int16 if res.h_bits < 32768 else torch.int32
-    stats["resident_packed"] = float(res.packed)
-    stats["resident_bytes"] = float(res.g.numel() * res.g.element_size())
+    # exact fetch (downcast after the mask has used int32).  Empty
+    # batches use the same rule: a cooperative scan gathers them.
+    cab_dtype = torch.int16 if main.h_bits < 32768 else torch.int32
+    cab_np = np.int16 if cab_dtype == torch.int16 else np.int32
+    stats["resident_packed"] = float(main.packed)
+    stats["resident_bytes"] = float(main.g.numel() * main.g.element_size())
 
-    # pass 1: one fused count per block
-    t0 = time.perf_counter()
     bi_np, bj_np = _scan_blocks(v, pos, count_block, max_dist)
-    cij_np = pack_block_coords(bi_np, bj_np)
-    counts = ld_band_count(
-        res.g, res.c1, res.ipq, res.pos, torch.from_numpy(cij_np).to(dev),
-        (n_hap, max_dist if use_dist else 0), (margin_thres,),
-        packed=res.packed, sel=sel, exact_mask=exact_mask, use_dist=use_dist,
-        block_m=count_block, block_n=count_block,
-    ).cpu().numpy().astype(np.int64)
-    stats["count_s"] = time.perf_counter() - t0
-    stats["blocks"] = int(cij_np.shape[0])
+    tiles, home = _scan_tiles(v, pos, band, chunk, bi_np, bj_np,
+                              count_block, max_dist)
+    n_proc, proc_idx = ((process_count(), process_index()) if multiprocess
+                        else (1, 0))
+    # this process's tiles are tiles[proc_idx::n_proc], max_tiles_per_call
+    # of them a batch
+    mine = home % n_proc == proc_idx
+    batch_of = home // n_proc // max_tiles_per_call
+    n_my_tiles = len(range(proc_idx, len(tiles), n_proc))
+    n_batches = -(-n_my_tiles // max_tiles_per_call)
+    stats["batches"] = n_batches
 
-    # pass 2: sweep the hit blocks in batches, compact, check
+    ckpt = None
+    if checkpoint_dir is not None:
+        os.makedirs(checkpoint_dir, exist_ok=True)
+        # what JAX's fingerprint hashes (ld_stream.py:1197-1204), a tag of
+        # the port's own and the rest of its tiling; (n_proc, proc_idx)
+        # make a cooperative scan's files per process
+        fp = hashlib.sha256(repr((
+            "torch-v1", want, v, h, n_hap, measure, thres, max_dist, band,
+            chunk, count_block, max_tiles_per_call, pos_sha, n_proc,
+            proc_idx,
+        )).encode()).hexdigest()[:16]
+
+        def ckpt(k):
+            return os.path.join(checkpoint_dir, f"scan_{fp}_batch{k}.npz")
+
+    # pass 1: every batch's count pass launched before any is read (the
+    # block lists go up in one copy: a copy from pageable host memory
+    # would wait for the kernels queued before it)
     t0 = time.perf_counter()
-    hit = np.flatnonzero(counts > 0)
-    stats["hit_blocks"] = int(hit.size)
+    live = [k for k in range(n_batches)
+            if ckpt is None or not os.path.exists(ckpt(k))]
+    blocks = {k: np.flatnonzero(mine & (batch_of == k)) for k in live}
+    order = np.concatenate([blocks[k] for k in live]) if live else \
+        np.zeros((0,), dtype=np.int64)
+    cij_all = pack_block_coords(bi_np[order], bj_np[order])
+    cij_dev = torch.from_numpy(cij_all).to(dev)
+    params = dict(params_i=(n_hap, max_dist if use_dist else 0),
+                  params_f=(margin_thres,), packed=main.packed, sel=sel,
+                  exact_mask=exact_mask, use_dist=use_dist,
+                  block_m=count_block, block_n=count_block)
+    counted = {}
+    shard_blocks = [0] * n_shards
+    lo = 0
+    for k in live:
+        cij = cij_dev[lo:lo + blocks[k].size]
+        lo += blocks[k].size
+        if n_shards == 1:
+            counted[k] = ld_band_count(main.g, main.c1, main.ipq, main.pos,
+                                       cij, **params)
+        else:
+            counted[k] = ld_band_count_sharded(
+                devices, *({d: getattr(r, f) for d, r in res.items()}
+                           for f in ("g", "c1", "ipq", "pos")), cij,
+                **params)
+        for s, (a, b) in enumerate(shard_slices(blocks[k].size, n_shards)):
+            shard_blocks[s] += b - a
+    stats["count_s"] += time.perf_counter() - t0
+    stats["blocks"] = int(order.size)
+    stats["shard_blocks"] = shard_blocks
+    stats["batches_resumed"] = n_batches - len(live)
+
+    # pass 2, batch by batch: sweep the hit blocks, compact, check
     per_batch = max(1, _FETCH_CELLS_PER_BATCH // (count_block * count_block))
-    sweep = ld_band_sweep_blocks_packed if res.packed else ld_band_sweep_blocks
-    parts = {name: [] for name in ("i", "j") + want}
-    n_device_hits = 0
-    stats["blocks_checked"] = 0
-    for lo in range(0, hit.size, per_batch):
-        sel_blocks = hit[lo:lo + per_batch]
-        cij = torch.from_numpy(cij_np[sel_blocks]).to(dev)
-        vals = sweep(
-            res.g, res.g, res.c1, res.c1, res.ipq, res.ipq, cij, n_hap,
-            outs=outs, sel=sel, block_m=count_block, block_n=count_block,
-        )
-        bi = torch.from_numpy(bi_np[sel_blocks].astype(np.int64)).to(dev)
-        bj = torch.from_numpy(bj_np[sel_blocks].astype(np.int64)).to(dev)
-        keep = block_keep_mask(
-            vals, res.c1, res.pos, bi, bj, n_hap, margin_thres, max_dist,
-            sel=sel, exact_mask=exact_mask, use_dist=use_dist,
-            block_m=count_block, block_n=count_block)
-        k, r, c = torch.nonzero(keep, as_tuple=True)
-        # both passes apply the same mask to the same integer counts (or
-        # the same compiled f32 measure): any disagreement is a fault
-        got = torch.bincount(k, minlength=len(sel_blocks)).cpu().numpy()
-        if not np.array_equal(got, counts[sel_blocks]):
-            bad = np.flatnonzero(got != counts[sel_blocks])
-            raise RuntimeError(
-                f"pass-2 hits disagree with pass-1 counts in "
-                f"{bad.size} block(s), first at block "
-                f"({bi_np[sel_blocks][bad[0]]}, {bj_np[sel_blocks][bad[0]]}): "
-                f"{got[bad[0]]} vs {counts[sel_blocks][bad[0]]}"
-            )
-        stats["blocks_checked"] += len(sel_blocks)
-        n_device_hits += int(k.shape[0])
-        i = bi[k] * count_block + r
-        j = bj[k] * count_block + c
-        real = (i < v) & (j < v)  # drop padding-row pairs
-        parts["i"].append(i[real].cpu().numpy())
-        parts["j"].append(j[real].cpu().numpy())
-        for name in want:
-            x = vals[name][k, r, c][real]
-            if name == "cab":
-                x = x.to(cab_dtype)
-            parts[name].append(x.cpu().numpy())
-        del vals, keep
-    stats["fetch_s"] = time.perf_counter() - t0
-    stats["device_hits"] = n_device_hits
+    sweep = ld_band_sweep_blocks_packed if main.packed else ld_band_sweep_blocks
+    hits = {name: [] for name in ("i", "j") + want}
+    stats.update(hit_blocks=0, blocks_checked=0, device_hits=0,
+                 shard_hit_blocks=[0] * n_shards)
+    for k in range(n_batches):
+        if k not in counted:
+            saved = np.load(ckpt(k))
+            for name in hits:
+                hits[name].append(saved[name])
+            log.info("resumed batch %d from %s", k, ckpt(k))
+            continue
+        t0 = time.perf_counter()
+        counts = counted.pop(k).cpu().numpy().astype(np.int64)
+        stats["count_s"] += time.perf_counter() - t0
+        t0 = time.perf_counter()
+        hit = blocks[k][counts > 0]
+        hit_counts = counts[counts > 0]
+        stats["hit_blocks"] += int(hit.size)
+        parts = {name: [] for name in hits}
+        for s, (a, b) in enumerate(shard_slices(hit.size, n_shards)):
+            stats["shard_hit_blocks"][s] += b - a
+            r = res[devices[s]]
+            with device_guard(devices[s]):
+                for lo in range(a, b, per_batch):
+                    hi = min(lo + per_batch, b)
+                    _fetch_blocks(
+                        r, sweep, bi_np[hit[lo:hi]], bj_np[hit[lo:hi]],
+                        hit_counts[lo:hi], parts, stats, v=v, n_hap=n_hap,
+                        outs=outs, want=want, cab_dtype=cab_dtype,
+                        margin_thres=margin_thres, max_dist=max_dist,
+                        sel=sel, exact_mask=exact_mask, use_dist=use_dist,
+                        count_block=count_block)
+        cat = ({name: np.concatenate(a) for name, a in parts.items()}
+               if parts["i"] else _empty_arrays(want, cab_np))
+        if ckpt is not None:
+            path = ckpt(k)
+            tmp = path + ".tmp"
+            with open(tmp, "wb") as fh:
+                np.savez(fh, **cat)
+            os.replace(tmp, path)
+        for name in hits:
+            hits[name].append(cat[name])
+        stats["fetch_s"] += time.perf_counter() - t0
 
     t0 = time.perf_counter()
-    if not parts["i"] or sum(a.size for a in parts["i"]) == 0:
+    arrs = ({name: np.concatenate(a) for name, a in hits.items()}
+            if hits["i"] else _empty_arrays(want, cab_np))
+    if n_proc > 1:
+        # every process joins the gather (a collective), hit-less ones too
+        t1 = time.perf_counter()
+        arrs = _allgather_hits(arrs, want)
+        stats["gather_s"] = time.perf_counter() - t1
+    if arrs["i"].size == 0:
         return _empty_hits(exact, stats)
-    arrs = {name: np.concatenate(a) for name, a in parts.items()}
     order = np.lexsort((arrs["j"], arrs["i"]))
     arrs = {name: a[order] for name, a in arrs.items()}
     if not exact:
@@ -455,14 +653,66 @@ def stream_threshold_scan(
                           d_prime=arrs["dp"], exact=False)
     else:
         result = _exact_refilter_counts(
-            arrs["cab"], res.c1_full, n_haplotypes, arrs["i"], arrs["j"],
+            arrs["cab"], main.c1_full, n_haplotypes, arrs["i"], arrs["j"],
             measure, thres,
         )
     stats["finish_s"] = time.perf_counter() - t0
     result.stats = stats
-    log.info("scan phases: %s",
-             " ".join(f"{k}={s:.2f}" for k, s in stats.items()))
+    log.info("scan phases: %s", " ".join(f"{k}={_fmt(x)}"
+                                          for k, x in stats.items()))
     return result
+
+
+def _fmt(x) -> str:
+    """A stats value for the one-line phase log: seconds to 0.01, lists
+    without spaces."""
+    if isinstance(x, float):
+        return f"{x:.2f}"
+    if isinstance(x, list):
+        return ",".join(map(str, x))
+    return str(x)
+
+
+def _fetch_blocks(r, sweep, bi_np, bj_np, counts, parts, stats, *, v, n_hap,
+                  outs, want, cab_dtype, margin_thres, max_dist, sel,
+                  exact_mask, use_dist, count_block):
+    """Pass 2 over one batch of hit blocks on one shard's resident copy
+    ``r``: sweep, the count pass's keep mask, compaction (row-major, like
+    the JAX package's ``_compact_true_positions``), then each block's hits
+    against its pass-1 count; appends the hits to ``parts``."""
+    dev = r.g.device
+    cij = torch.from_numpy(pack_block_coords(bi_np, bj_np)).to(dev)
+    vals = sweep(r.g, r.g, r.c1, r.c1, r.ipq, r.ipq, cij, n_hap, outs=outs,
+                 sel=sel, block_m=count_block, block_n=count_block)
+    bi = torch.from_numpy(bi_np.astype(np.int64)).to(dev)
+    bj = torch.from_numpy(bj_np.astype(np.int64)).to(dev)
+    keep = block_keep_mask(
+        vals, r.c1, r.pos, bi, bj, n_hap, margin_thres, max_dist, sel=sel,
+        exact_mask=exact_mask, use_dist=use_dist, block_m=count_block,
+        block_n=count_block)
+    k, row, col = torch.nonzero(keep, as_tuple=True)
+    # both passes apply the same mask to the same integer counts (or the
+    # same compiled f32 measure): any disagreement is a fault
+    got = torch.bincount(k, minlength=len(bi_np)).cpu().numpy()
+    if not np.array_equal(got, counts):
+        bad = np.flatnonzero(got != counts)
+        raise RuntimeError(
+            f"pass-2 hits disagree with pass-1 counts in {bad.size} "
+            f"block(s), first at block ({bi_np[bad[0]]}, {bj_np[bad[0]]}): "
+            f"{got[bad[0]]} vs {counts[bad[0]]}"
+        )
+    stats["blocks_checked"] += len(bi_np)
+    stats["device_hits"] += int(k.shape[0])
+    i = bi[k] * count_block + row
+    j = bj[k] * count_block + col
+    real = (i < v) & (j < v)  # drop padding-row pairs
+    parts["i"].append(i[real].cpu().numpy())
+    parts["j"].append(j[real].cpu().numpy())
+    for name in want:
+        x = vals[name][k, row, col][real]
+        if name == "cab":
+            x = x.to(cab_dtype)
+        parts[name].append(x.cpu().numpy())
 
 
 def _sync(dev: torch.device) -> None:

@@ -4,7 +4,10 @@ ld_tools_tpu/tools/scan.py).
 Streams all lower-triangle pairs of a chromosome through the count and
 band kernels, keeps pairs with LD >= threshold (optionally within a
 distance window), and writes them as a pair-list TSV byte-identical to
-the JAX tool's.  One process scans every requested chromosome.
+the JAX tool's.  ``-d`` shards each chromosome's scan over local devices,
+``-k`` makes it resumable, and under a torch.distributed launcher the
+processes either scan one chromosome together (process 0 writes) or
+split the chromosomes between them.
 """
 
 from __future__ import annotations
@@ -33,17 +36,11 @@ class ScanConfig:
     ld_low_thres: float
     max_dist: object  # int or None
     device: str = "cuda"
+    checkpoint_dir: object = None
+    n_devices: object = None  # None = 1; "all" or int = shard the tiles
 
     @staticmethod
     def from_args(args):
-        if getattr(args, "checkpoint_dir", None) is not None:
-            raise NotImplementedError(
-                "-k/--checkpoint-dir: scan checkpoints are not ported yet "
-                "(ROADMAP queue 6)")
-        if getattr(args, "devices", None) is not None:
-            raise NotImplementedError(
-                "-d/--devices: multi-device scans are not ported yet "
-                "(ROADMAP queue 8)")
         chroms = tuple(
             c for c in args.chroms.split(",") if c and c.lower() != "all"
         )
@@ -58,7 +55,21 @@ class ScanConfig:
             ld_low_thres=args.ld_low_thres,
             max_dist=args.max_dist,
             device=ENGINE_DEVICES[engine],
+            checkpoint_dir=getattr(args, "checkpoint_dir", None),
+            n_devices=getattr(args, "devices", None),
         )
+
+    def mesh(self):
+        """The shard list of ``-d`` (:func:`scan_mesh`: the first N local
+        devices, repeated past their count; "all" every local card), or
+        None where that is one shard."""
+        if self.n_devices is None:
+            return None
+        from ld_tools_tpu_torch.ops.ld_stream import scan_mesh
+
+        n = None if self.n_devices == "all" else int(self.n_devices)
+        mesh = scan_mesh(n, device=self.device)
+        return mesh if len(mesh) > 1 else None
 
 
 @dataclasses.dataclass
@@ -103,9 +114,15 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig):
     )
 
 
-def scan_chromosome(data: DataConfig, config: ScanConfig,
-                    chrom: str) -> ScanReport:
-    """Scan one chromosome and write its TSV."""
+def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
+                    multiprocess: bool = False,
+                    write: bool = True) -> ScanReport:
+    """Scan one chromosome and write its TSV.
+
+    ``multiprocess=True`` (a torch.distributed group scanning ONE
+    chromosome together) splits the tiles over the processes inside
+    stream_threshold_scan; every process holds the merged hits and only
+    the one with ``write`` writes them (the others report no path)."""
     import time
 
     import numpy as np
@@ -150,9 +167,16 @@ def scan_chromosome(data: DataConfig, config: ScanConfig,
         thres=config.ld_low_thres,
         max_dist=config.max_dist,
         exact=True,
+        checkpoint_dir=config.checkpoint_dir,
+        mesh=config.mesh(),
+        multiprocess=multiprocess,
         resident_key=_resident_key(data, cd),
         device=config.device,
     )
+    stats = dict(hits.stats or {})
+    if not write:
+        return ScanReport(chrom=chrom, path=None, n_hits=int(len(hits.i)),
+                          stats=stats)
     t_write = time.perf_counter()
     makedirs(config.trg_dir_path)
     name = (
@@ -184,7 +208,6 @@ def scan_chromosome(data: DataConfig, config: ScanConfig,
         fh.write("#hg38_pos_1\trsID_1\thg38_pos_2\trsID_2\tdist\tr2\tD'\n")
         for pa_k, ra, pb_k, rb, d, r2k, dpk in rows:
             fh.write(f"{pa_k}\t{ra}\t{pb_k}\t{rb}\t{d}\t{r2k}\t{dpk}\n")
-    stats = dict(hits.stats or {})
     stats["write_s"] = time.perf_counter() - t_write
     n_pairs = cd.n_variants * (cd.n_variants - 1) / 2
     elapsed = time.time() - t_start
@@ -198,13 +221,20 @@ def scan_chromosome(data: DataConfig, config: ScanConfig,
 
 
 def run(args) -> list:
-    """Scan every requested chromosome; returns one ScanReport each."""
+    """Scan every requested chromosome of this process; returns one
+    ScanReport each."""
     import datetime
 
+    from ld_tools_tpu_torch.parallel.batch import chromosomes_for_this_process
     from ld_tools_tpu_torch.utils.device import resolve_device
+    from ld_tools_tpu_torch.utils.distributed import (
+        initialize_if_needed, local_device, process_count, process_index)
 
     config = ScanConfig.from_args(args)
     resolve_device(config.device)  # no card for -E cuda: fail before prep
+    own = local_device(config.device)
+    if own is not None:  # one card per process under a launcher
+        config = dataclasses.replace(config, device=str(own))
     data = DataConfig.resolve(
         args.intgen_dir_path,
         args.skip_intgen_data_ver,
@@ -212,11 +242,20 @@ def run(args) -> list:
         args.pop_names,
     )
     chroms = list(config.chroms) or data.store().chroms()
+    # join the launcher's group; then a group pointed at ONE chromosome
+    # scans it together (tiles split, hits gathered, process 0 writes),
+    # and otherwise each process takes whole chromosomes
+    initialize_if_needed()
+    coop = process_count() > 1 and len(chroms) == 1
+    if not coop:
+        chroms = chromosomes_for_this_process(chroms)
     print("\nWhole-chromosome LD scan")
     reports = []
     with maybe_trace():
         t0 = datetime.datetime.now()
         for chrom in chroms:
-            reports.append(scan_chromosome(data, config, chrom))
+            reports.append(scan_chromosome(
+                data, config, chrom, multiprocess=coop,
+                write=not coop or process_index() == 0))
     print(f"\tcomputation time: {datetime.datetime.now() - t0}")
     return reports

@@ -8,6 +8,8 @@ carries on quietly on the CPU.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -25,3 +27,10 @@ def resolve_device(device="cuda") -> torch.device:
     if dev.type == "cpu":
         return dev
     raise ValueError(f"unsupported device {device!r}: use 'cuda' or 'cpu'")
+
+
+def device_guard(dev: torch.device):
+    """A context that makes ``dev`` the current CUDA device (nothing for
+    the CPU): work for a second card must not run on the first."""
+    return (torch.cuda.device(dev) if dev.type == "cuda"
+            else contextlib.nullcontext())

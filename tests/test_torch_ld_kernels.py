@@ -36,11 +36,22 @@ import dataclasses, importlib, pickle, sys
 import jax
 jax.config.update("jax_platforms", "cpu")
 import numpy as np
+
+def resolve(x):
+    if isinstance(x, tuple) and len(x) == 5 and x[0] == "__call__":
+        _, mod, fn, args, kw = x
+        return getattr(importlib.import_module(mod), fn)(
+            *map(resolve, args), **{k: resolve(a) for k, a in kw.items()})
+    return x
+
+def call(fn, *args):
+    return fn(*args)
+
 with open(sys.argv[1], "rb") as fh:
     calls = pickle.load(fh)
 out = []
-for mod, fn, args, kw in calls:
-    r = getattr(importlib.import_module(mod), fn)(*args, **kw)
+for call_ in calls:
+    r = resolve(("__call__",) + tuple(call_))
     out.append(r if dataclasses.is_dataclass(r)
                else jax.tree.map(np.asarray, r))
 with open(sys.argv[1], "wb") as fh:
@@ -48,12 +59,24 @@ with open(sys.argv[1], "wb") as fh:
 """
 
 
-def jax_without_fma(calls):
+def deferred(mod, fn, *args, **kw):
+    """A call that the JAX child makes and passes on as an argument (a
+    mesh, a jitted function); module "__main__" names the child's own
+    ``call(fn, *args)``."""
+    return ("__call__", mod, fn, args, kw)
+
+
+def jax_without_fma(calls, n_devices=1):
     """Results of ``calls``, a list of (module, function, args, kwargs) of
     the JAX package, run in one child process on an XLA CPU backend
-    without FMA instructions; array outputs come back as numpy."""
+    without FMA instructions and with ``n_devices`` virtual devices;
+    arguments may be :func:`deferred` calls; array outputs come back as
+    numpy."""
+    flags = "--xla_cpu_max_isa=AVX"
+    if n_devices > 1:
+        flags += f" --xla_force_host_platform_device_count={n_devices}"
     env = dict(os.environ, JAX_PLATFORMS="cpu", PYTHONPATH=REPO,
-               XLA_FLAGS="--xla_cpu_max_isa=AVX")
+               XLA_FLAGS=flags)
     with tempfile.TemporaryDirectory() as d:
         path = os.path.join(d, "calls.pkl")
         with open(path, "wb") as fh:

@@ -224,8 +224,13 @@ def test_packed_plain_versions_count_no_launch(rng):
     tk.ld_triangle_matrix(torch.from_numpy(g), mxu_dtype="float32")
     tk.ld_stage_blocks(torch.from_numpy(g), c1t, ipqt, cij, h, block=16,
                        stage="exact")
+    tk.ld_band_count_sharded(["cpu"] * 2, *(
+        tk.shard_replicas(t, ["cpu"])
+        for t in (gp, c1t, ipqt, torch.from_numpy(pos))), cij, [h, 0], [0.5],
+                             packed=True, sel=0, exact_mask=True,
+                             use_dist=False, block_m=16, block_n=16)
     assert all(site.launches == 0 for site in tk.LAUNCH_SITES)
-    assert len(tk.LAUNCH_SITES) == 9
+    assert len(tk.LAUNCH_SITES) == 10
 
 
 def test_packed_sites_take_only_bytes_and_widths_of_16():
