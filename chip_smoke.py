@@ -6,7 +6,10 @@
 Phases, each of which exits non-zero on any failure:
 
 1. device   the card's name and power limit (nvidia-smi);
-2. build    nvcc compiles csrc/ld_kernels.cu for sm_90a (every instance);
+2. build    nvcc compiles every csrc/*.cu for sm_90a (every instance) and
+            prints ptxas's registers, shared memory and spills; cuobjdump
+            -sass must show warpgroup MMAs (GMMA) and no IMMA in both
+            instances of the count kernel (K5, K6: wgmma and TMA);
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes the scan and the headline sweep give it (640-row
             blocks, W = 5,120 int8 haplotypes or 640 packed bytes, a ragged
@@ -15,12 +18,16 @@ Phases, each of which exits non-zero on any failure:
             the packed bytes (K2); the band sweep (K3) and its bit-plane
             form (K4); the fused count pass (K5) and its bit-plane form
             (K6), in both mask modes, both measures, with and without the
-            distance window.  Every bit-plane and K1b output must equal its
-            int8 twin's bit for bit (K2 = K1, K1b = K1, K4 = K3, K6 = K5).
+            distance window, also at a count block (1,000) that the count
+            kernel's 128 x 320 tile does not divide.  Every bit-plane and
+            K1b output must equal its int8 twin's bit for bit (K2 = K1,
+            K1b = K1, K4 = K3, K6 = K5).
             Pass-1 counts against pass-2 hits in both mask modes and both
             resident layouts.  Per kernel its time, the plain version's,
-            the least time the card could take, and torch._int_mm over the
-            same int8 block products as a yardstick the port never calls;
+            the least time the card could take and their ratio (the
+            roofline share), and torch._int_mm over the same int8 block
+            products as a yardstick the port never calls (for K1b also
+            torch.matmul in bf16 and in TF32 over the same blocks);
 4. scan     the ld_scan tool (ld_tools_tpu_torch.ld_scan.main, what
             ``python -m ld_tools_tpu_torch.ld_scan`` runs) on a chr21-scale
             store of 102,400 variants x 5,008 haplotypes written by the
@@ -93,6 +100,8 @@ N_HAP = 5008
 W_DENSE = 5120   # haplotypes padded to 128
 W_PACKED = 640   # the 626 packed bytes padded to 128
 BLOCK = 640
+# a count block that the count kernel's 128 x 320 tile does not divide
+UNTIDY_BLOCK = 1000
 # the slice at full size: 144 x 7,680 variants, the record count of a
 # 1000 Genomes phase-3 chromosome VCF (chr21: about 1.1 M), in runs of 8
 # correlated rows (about 2.3 M hits, near the 102,400-variant store's)
@@ -104,6 +113,7 @@ N_RAGGED = 10_000    # the ragged check slice: its last block is partial
 N_PARITY = 10_240    # the -E cuda / -E torch store
 LIMIT = "TPU_LD_DENSE_RESIDENT_BYTES"
 SOURCE = "ld_tools_tpu_torch/csrc/ld_kernels.cu"
+COUNT_SOURCE = "ld_tools_tpu_torch/csrc/ld_count_sm90.cu"  # K5, K6 (K7)
 PALLAS = "ld_tools_tpu/ops/ld_pallas.py"
 # K8's stages (ops/ld_kernels.STAGES) and block (bench_microkernels.py's)
 STAGES = ("counts", "scale", "fast", "exact")
@@ -187,6 +197,34 @@ def int_mm_rows(g, nb, block):
 
     for k in range(nb):
         torch._int_mm(g[k * block:(k + 1) * block], g[:(k + 1) * block].t())
+
+
+def matmul_rows(g, nb, block):
+    """torch.matmul over the same block rows as :func:`int_mm_rows`, in
+    ``g``'s float type: K1b's yardstick (never called by the port)."""
+    import torch
+
+    for k in range(nb):
+        torch.matmul(g[k * block:(k + 1) * block], g[:(k + 1) * block].t())
+
+
+def float_yardsticks(g, nb, block):
+    """(bf16 ms, TF32 ms) of :func:`matmul_rows` on the int8 rows ``g``
+    cast to bf16, and to f32 with TF32 products allowed (the setting is
+    restored afterwards)."""
+    import torch
+
+    gb = g.to(torch.bfloat16)
+    bf16 = cuda_ms(lambda: matmul_rows(gb, nb, block), reps=5)
+    del gb
+    gf = g.to(torch.float32)
+    saved = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        tf32 = cuda_ms(lambda: matmul_rows(gf, nb, block), reps=5)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = saved
+    return bf16, tf32
 
 
 def bound(ops, nbytes, peak=H100_INT8_OPS):
@@ -299,7 +337,52 @@ def phase_build():
             kernel = f"{m.group(1)}<{m.group(2)}>"
         elif "registers" in ln or "spill" in ln:
             log(f"  ptxas {kernel}: {ln.strip()}")
+    check_count_sass(_cuda_build.LIB)
     return info["seconds"]
+
+
+def _cuobjdump():
+    """cuobjdump from the CUDA toolkit, else the one Triton ships."""
+    cands = [os.path.join(os.environ.get("CUDA_HOME", ""), "bin", "cuobjdump"),
+             "/usr/local/cuda/bin/cuobjdump", shutil.which("cuobjdump") or ""]
+    try:
+        import triton
+
+        cands.append(os.path.join(os.path.dirname(triton.__file__), "backends",
+                                  "nvidia", "bin", "cuobjdump"))
+    except ImportError:
+        pass
+    for cand in cands:
+        if cand and os.path.isfile(cand):
+            return cand
+    raise SmokeFailure("cuobjdump not found in the CUDA toolkit ($CUDA_HOME/"
+                       "bin, /usr/local/cuda/bin, PATH) nor under triton/"
+                       "backends/nvidia/bin: cannot check the count kernel's "
+                       "SASS")
+
+
+def check_count_sass(lib):
+    """Both instances of the count kernel (K5 <0>, K6 <1>) run warpgroup
+    MMAs: their SASS holds GMMA instructions and no IMMA (mma.sync)."""
+    sass = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
+                          text=True, timeout=300, check=True).stdout
+    ops, fn = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : \S*?\d(ld_[a-z_]+?_kernel)ILi(\d+)E", ln)
+        if m:
+            fn = f"{m.group(1)}<{m.group(2)}>"
+            ops[fn] = {"GMMA": 0, "IMMA": 0}
+        elif "Function :" in ln:
+            fn = None
+        elif fn:
+            for op in ops[fn]:
+                ops[fn][op] += len(re.findall(rf"\b\w*{op}\b", ln))
+    for inst in ("ld_band_count_kernel<0>", "ld_band_count_kernel<1>"):
+        n = ops.get(inst)
+        check(n is not None, f"no SASS for {inst} in {lib}")
+        check(n["GMMA"] > 0 and n["IMMA"] == 0,
+              f"{inst} SASS: {n['GMMA']} GMMA, {n['IMMA']} IMMA instructions")
+        log(f"  sass {inst}: {n['GMMA']} GMMA, {n['IMMA']} IMMA")
 
 
 def _check_rows(gp_host, pos, n_rows):
@@ -425,6 +508,10 @@ def phase_triangles(results, g1, gq1):
                 block_n=BLOCK)
 
     mm1 = cuda_ms(lambda: int_mm_rows(g1, v1 // BLOCK, BLOCK), reps=5)
+    # K1b's own yardsticks: the same block products in its operand types
+    mm_bf16, mm_tf32 = float_yardsticks(g1, v1 // BLOCK, BLOCK)
+    yardsticks = {"ld_triangle_kernel<FORM_BF16>": ("bf16", mm_bf16),
+                  "ld_triangle_kernel<FORM_TF32>": ("tf32", mm_tf32)}
     out = (torch.empty((v1, v1), dtype=torch.float32, device=dev), None)
     G1_dev = g1[:, :N_HAP].contiguous()
     gp1_dev = gq1[:, :N_HAP // 8].contiguous()
@@ -477,9 +564,14 @@ def phase_triangles(results, g1, gq1):
             path=f"triangle sweep, V={v1} ({entry})",
             shape=f"{n1} blocks of {BLOCK}x{BLOCK}, W={rows.shape[1]} "
                   f"{'bytes' if packed else 'int8'}, fast epilogue")
+        note = ""
+        if name in yardsticks:
+            kind, mm = yardsticks[name]
+            results[name]["extra"] = {f"matmul_{kind}_ms": mm}
+            note = f", torch.matmul {kind} {mm:.3f} ms ({ms / mm:.2f}x it)"
         log(f"{KERNELS[name][0]} {name}: {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm1:.3f} ms, "
-            f"max abs err {err:.3g}")
+            f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm1:.3f} ms"
+            f"{note}, max abs err {err:.3g}")
     del out, r2_k1
     for name, block in BENCH_BLOCKS:
         bi, bj = lk._triangle_coords(v1 // block)
@@ -592,6 +684,29 @@ def phase_ragged(gp_host, pos, results):
                 check(torch.equal(got6, got5), f"K6 {what}: differs from K5")
                 check(int(got5.sum()) > 0, f"K5 {what} kept nothing")
     log("K5, K6: every mode equals the plain versions; K6 = K5 bit for bit "
+        f"({n_rows} ragged rows)")
+    # a count block the 128 x 320 tile does not divide: the cells past
+    # each logical block are never counted
+    nbu = -(-n_rows // UNTIDY_BLOCK)
+    biu, bju = np.tril_indices(nbu)
+    ciju = torch.from_numpy(lk.pack_block_coords(biu, bju)).to(dev)
+    for exact_mask in (True, False):
+        for sel in (0, 1):
+            kw = dict(sel=sel, exact_mask=exact_mask, use_dist=True,
+                      block_m=UNTIDY_BLOCK, block_n=UNTIDY_BLOCK)
+            what = f"block {UNTIDY_BLOCK} exact_mask={exact_mask} sel={sel}"
+            args = (c1r, ipqr, posr, ciju, (N_HAP, 1_000_000), (thres,))
+            got5 = lk.ld_band_count(g, *args, packed=False, **kw)
+            got6 = lk.ld_band_count(gq, *args, packed=True, **kw)
+            ref = lk.ld_band_count_plain(g, c1r, ipqr, posr, ciju, N_HAP,
+                                         1_000_000, thres, **kw)
+            check(torch.equal(got5, ref), f"K5 {what}: counts differ in "
+                  f"{int((got5 != ref).sum())} blocks")
+            check(torch.equal(got6, ref), f"K6 {what}: counts differ in "
+                  f"{int((got6 != ref).sum())} blocks")
+            check(int(ref.sum()) > 0, f"K5 {what} kept nothing")
+    log(f"K5, K6 at count block {UNTIDY_BLOCK} (the tile does not divide "
+        f"it): both mask modes and measures equal the plain version "
         f"({n_rows} ragged rows)")
     # the triangle routes on the same rows: the last block row is partial
     for name in _triangle_routes():
@@ -721,8 +836,9 @@ def phase_scan_shapes(gp_host, pos, results):
             shape=f"{nb5} blocks of {BLOCK}x{BLOCK}, W={res.g.shape[1]} "
                   f"{'bytes' if res.packed else 'int8'}, integer mask")
         log(f"{KERNELS[name][0]} {name}: {ms:.3f} ms, plain {plain_ms:.3f} "
-            f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm5:.3f} ms "
-            f"({nb5} blocks)")
+            f"ms, bound {b[0]:.3f} ms ({b[1]}), roofline share "
+            f"{b[0] / ms:.3f}, torch._int_mm {mm5:.3f} ms ({nb5} blocks; "
+            f"{ms / mm5:.2f}x it)")
     check(torch.equal(counts["ld_band_count_kernel"],
                       counts["ld_band_count_kernel<FORM_BITS>"]),
           "K6 main-path counts differ from K5's")
@@ -1107,9 +1223,11 @@ def phase_sharded(work, stores, gp, pos, results):
     ms7 = cuda_ms(lambda: k7(mesh, copies), reps=3)
     ms5 = (ms5 + cuda_ms(k5, reps=3)) / 2
     b = _count_bound(bi, bj, v, W_DENSE)
+    mm7 = cuda_ms(lambda: int_mm_rows(rd.g, -(-v // BLOCK), BLOCK), reps=1)
     log(f"K7 ld_band_count_sharded, {SHARDS} shards on one card: "
-        f"{ms7:.3f} ms, K5 unsharded {ms5:.3f} ms, bound {b[0]:.3f} ms "
-        f"({b[1]}) ({len(bi)} blocks, chr21, int8)")
+        f"{ms7:.3f} ms (roofline share {b[0] / ms7:.3f}), K5 unsharded "
+        f"{ms5:.3f} ms ({b[0] / ms5:.3f}), bound {b[0]:.3f} ms ({b[1]}), "
+        f"torch._int_mm {mm7:.3f} ms ({len(bi)} blocks, chr21, int8)")
     del rd, want, cij, rows, params, copies
     torch.cuda.empty_cache()
 
@@ -1136,8 +1254,9 @@ def phase_sharded(work, stores, gp, pos, results):
     ms7p = cuda_ms(k7p, reps=3)
     ms6 = (ms6 + cuda_ms(k6, reps=3)) / 2
     bp = _count_bound(bif, bjf, gpf.shape[0], W_PACKED)
-    log(f"K7 ld_band_count_sharded (packed), {SHARDS} shards: {ms7p:.3f} ms, "
-        f"K6 unsharded {ms6:.3f} ms, bound {bp[0]:.3f} ms ({bp[1]}) "
+    log(f"K7 ld_band_count_sharded (packed), {SHARDS} shards: {ms7p:.3f} ms "
+        f"(roofline share {bp[0] / ms7p:.3f}), K6 unsharded {ms6:.3f} ms "
+        f"({bp[0] / ms6:.3f}), bound {bp[0]:.3f} ms ({bp[1]}) "
         f"({len(bif)} blocks, 1.1 M variants, -w 1000000)")
     del rp, cij, rows, params, copies
     torch.cuda.empty_cache()
@@ -1178,13 +1297,15 @@ def phase_sharded(work, stores, gp, pos, results):
         launches=k7_launches, max_abs_err=0.0, ms=ms7,
         plain_ms=results["ld_band_count_kernel"]["plain_ms"],
         bound_ms=b[0], bound_by=b[1], library_ms=None,
-        int_mm_ms=results["ld_band_count_kernel"]["int_mm_ms"],
+        int_mm_ms=mm7,
         path=f"stream_threshold_scan(mesh=[cuda:0]*{SHARDS}), chr21, int8 "
              "layout (launches); plain_ms: the plain count over the "
              "unsharded list, timed in the scan-shapes phase",
         shape=f"{len(bi)} blocks of {BLOCK}x{BLOCK} over {SHARDS} shards on "
               f"one card, W={W_DENSE} int8, integer mask",
-        extra=dict(k5_ms=ms5, packed_ms=ms7p, packed_k6_ms=ms6,
+        extra=dict(k5_ms=ms5, k5_roofline_share=b[0] / ms5,
+                   packed_ms=ms7p, packed_k6_ms=ms6,
+                   packed_k6_roofline_share=bp[0] / ms6,
                    packed_bound_ms=bp[0], packed_bound_by=bp[1],
                    packed_shape=f"{len(bif)} blocks, 1.1 M variants packed "
                                 "(W=640 bytes), -w 1000000"))
@@ -1436,11 +1557,13 @@ def main():
         check(r.get("launches", 0) >= 1, f"{name} was never launched on its "
               "path")
         kernels.append(dict(
-            name=name, tag=tag, route="cuda", source=SOURCE,
+            name=name, tag=tag, route="cuda",
+            source=COUNT_SOURCE if tag in ("K5", "K6", "K7") else SOURCE,
             replaces=replaces, launches=r["launches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
             library_ms=r["library_ms"], int_mm_ms=r["int_mm_ms"],
+            roofline_share=r["bound_ms"] / r["ms"],
             path=r["path"], shape=r["shape"], **r.get("extra", {}),
         ))
     log(f"total: {time.perf_counter() - t_start:.1f}s")

@@ -1,11 +1,11 @@
 // Hand-written Hopper (sm_90a) kernels for the LD engine's count
-// products and their fused epilogues.
+// products and their fused epilogues: the triangle and the band sweep.
 //
-// Three kernels share one count-tile core and one set of epilogue and
-// mask functions, so every pass of a scan derives its numbers from the
-// same compiled arithmetic.  Each is a template on the operand form of
-// its rows (Form below), and every instance runs the same epilogue and
-// mask code on the same exact int32 counts:
+// Both share one mma.sync count-tile core here and the epilogue and mask
+// functions of ld_common.cuh, so every pass of a scan derives its numbers
+// from the same compiled arithmetic.  Each is a template on the operand
+// form of its rows (Form, ld_common.cuh), and every instance runs the same
+// epilogue code on the same exact int32 counts:
 //
 //   ld_triangle_kernel    replaces ld_tools_tpu/ops/ld_pallas.py
 //                         _tri_kernel_dense (K1: int8; K1b: the bf16 /
@@ -19,10 +19,9 @@
 //                         menu cab / r2 / dp / meas, over a LIST of blocks
 //                         so that one launch covers a whole batch of a
 //                         scan's hit blocks.
-//   ld_band_count_kernel  replaces ld_pallas.py _band_count_kernel, dense
-//                         (K5) and packed (K6) branches: counts -> keep
-//                         mask -> one int32 hit count per block, nothing
-//                         else leaves the chip.
+//
+// The count pass (K5, K6: ld_band_count_kernel) is a wgmma / TMA design of
+// its own in ld_count_sm90.cu.
 //
 // What bounds them on an H100: the tensor-core operations.  A block pair
 // of 640 x 640 variants over W = 5,120 haplotypes is 2 * 640^2 * 5120 =
@@ -32,13 +31,13 @@
 // memory: each thread block computes one 128 x 128 sub-tile of a logical
 // block with mma.sync over a double-buffered cp.async pipeline, and the
 // epilogue runs on the accumulators in registers, so only the requested
-// outputs (or, for the count kernel, one atomicAdd per thread block) are
-// written.  wgmma and TMA are later work.
+// outputs are written.  Moving these two onto the count pass's wgmma core
+// is later work.
 //
 // Operand forms (the count core is the only code that differs):
-//   FORM_S8    int8 {0,1} rows, mma m16n8k32 s8 -> s32 (K1, K3, K5).
+//   FORM_S8    int8 {0,1} rows, mma m16n8k32 s8 -> s32 (K1, K3).
 //   FORM_BITS  the store's bitpacked uint8 rows, 8 haplotypes per byte
-//              (K2, K4, K6).  cp.async copies the packed bytes, 8x fewer
+//              (K2, K4).  cp.async copies the packed bytes, 8x fewer
 //              per K step, and the bit-planes are unpacked in registers:
 //              for a fragment word w of four packed bytes, (w >> s) &
 //              0x01010101 is the int8x4 fragment of plane s, and 8 s8
@@ -70,15 +69,14 @@
 // TPU kernel's bf16/f32 branch, not for speed.
 //
 // A 640 x 640 logical block does not fit one thread block, so each kernel
-// splits it into ceil(block/128)^2 sub-tiles; the count kernel adds each
-// sub-tile's integer count into its block's slot with atomicAdd (integers
-// make the order irrelevant; the caller zeroes the slots).  Ragged edges
+// splits it into ceil(block/128)^2 sub-tiles.  Ragged edges
 // are masked here: rows past the matrix are zero-filled on load and never
 // kept, cells past the logical block are never written.  Padding bytes
 // and padding bits are zero, so they add nothing to any count.
 //
-// Build: nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
-//        -std=c++17 -shared -Xcompiler -fPIC.
+// Build (ops/_cuda_build.py, every csrc/*.cu the same way):
+//        nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
+//        -std=c++17 -c -Xcompiler -fPIC, linked with -shared.
 // -fmad=false is required: the f32 epilogues must round every product and
 // sum on its own, exactly as the plain PyTorch versions do op by op, or
 // the f32 fallback mask of the count pass and the fetch pass could differ.
@@ -86,6 +84,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "ld_common.cuh"
 
 namespace {
 
@@ -96,8 +96,6 @@ constexpr int SROW = TK + 16;      // padded smem row: conflict-free 32-bit frag
 constexpr int NTHREADS = 256;      // 8 warps as 2 (m) x 4 (n); warp tile 64 x 32
 constexpr int MI = 4;              // m16 tiles per warp
 constexpr int NI = 4;              // n8 tiles per warp
-
-enum Form : int { FORM_S8 = 0, FORM_BITS = 1, FORM_BF16 = 2, FORM_TF32 = 3 };
 
 struct SubTile {
     int k;      // index into the block list
@@ -390,89 +388,16 @@ __device__ __forceinline__ int acc_col(int ni, int e) {
     return (warp & 3) * 32 + ni * 8 + 2 * (threadIdx.x & 3) + (e & 1);
 }
 
-// ---- shared epilogue and mask functions (mirror ld_pallas.py) ----------
-
-// _fast_r2 (ld_pallas.py:722): divide-free r^2 from f32 counts.
-__device__ __forceinline__ float fast_r2(float c, float c1a, float c1b,
-                                         float ipqa, float ipqb,
-                                         float inv_n) {
-    const float p1 = c1a * inv_n;
-    const float p2 = c1b * inv_n;
-    const float d = c * inv_n - p1 * p2;
-    return (d * d) * (ipqa * ipqb);
-}
-
-// _ld_epilogue (ld_pallas.py:55): exact-order r^2 and D' with the
-// monomorphic-to-0 sentinels.  want_dp = false skips the D' denominator.
-__device__ __forceinline__ void ld_epilogue(float c, float c1a, float c1b,
-                                            float inv_n, float n,
-                                            bool want_dp, float* r2,
-                                            float* dp) {
-    const float p_ab = c * inv_n;
-    const float p1 = c1a * inv_n;
-    const float q1 = (n - c1a) * inv_n;
-    const float p2 = c1b * inv_n;
-    const float q2 = (n - c1b) * inv_n;
-    const float d = p_ab - p1 * p2;
-    const float r2_den = (p1 * q1) * (p2 * q2);
-    bool dp_zero;
-    if (want_dp) {
-        const float den_pos = fminf(p1 * q2, q1 * p2);
-        const float den_neg = fmaxf(-(p1 * p2), -(q1 * q2));
-        const float den = d >= 0.0f ? den_pos : den_neg;
-        const float dpv = den == 0.0f ? 0.0f : d / den;
-        *dp = dpv;
-        dp_zero = dpv == 0.0f;
-    } else {
-        dp_zero = r2_den == 0.0f || d == 0.0f;
-    }
-    *r2 = dp_zero ? 0.0f : (d * d) / r2_den;
-}
-
-// exact_keep_mask (ld_pallas.py:870): the threshold test from exact
-// integer counts, int32-exact for n <= 46,340.
-__device__ __forceinline__ bool exact_keep(int cab, float c1a, float c1b,
-                                           int n, float thres, int sel) {
-    const int c1i = static_cast<int>(c1a);  // counts are exact in f32
-    const int c2i = static_cast<int>(c1b);
-    const int nd = n * cab - c1i * c2i;
-    const float nd_f = static_cast<float>(nd);
-    if (sel == 0) {
-        const float ab = static_cast<float>(c1i * (n - c1i)) *
-                         static_cast<float>(c2i * (n - c2i));
-        return nd_f * nd_f >= thres * ab && (ab > 0.0f || thres <= 0.0f);
-    }
-    const int m_pos = min(c1i * (n - c2i), (n - c1i) * c2i);
-    const int m_neg = min(c1i * c2i, (n - c1i) * (n - c2i));
-    const float m = static_cast<float>(nd >= 0 ? m_pos : m_neg);
-    return fabsf(nd_f) >= thres * m && (m > 0.0f || thres <= 0.0f);
-}
-
-// The f32 fallback measure (cohorts past the int32-exact bound): fast r^2
-// for sel 0, exact-order D' for sel 1.
-__device__ __forceinline__ float fallback_meas(int cab, float c1a, float c1b,
-                                               float ipqa, float ipqb,
-                                               float n, float inv_n,
-                                               int sel) {
-    const float c = static_cast<float>(cab);
-    if (sel == 0) return fast_r2(c, c1a, c1b, ipqa, ipqb, inv_n);
-    float r2, dp;
-    ld_epilogue(c, c1a, c1b, inv_n, n, true, &r2, &dp);
-    return dp;
-}
-
 // Per-row vectors of one sub-tile, staged in shared memory; rows past the
 // matrix read as 0 (monomorphic: every measure finishes as 0).
 struct RowVecs {
     float c1r[TM], c1c[TN], ipqr[TM], ipqc[TN];
-    int posr[TM], posc[TN];
 };
 
 __device__ __forceinline__ void stage_vecs(RowVecs& v, const float* c1a,
                                            const float* c1b,
                                            const float* ipqa,
                                            const float* ipqb,
-                                           const int* posa, const int* posb,
                                            int row0, int n_rows_a, int col0,
                                            int n_rows_b) {
     for (int i = threadIdx.x; i < TM; i += NTHREADS) {
@@ -480,77 +405,12 @@ __device__ __forceinline__ void stage_vecs(RowVecs& v, const float* c1a,
         const bool ok = r < n_rows_a;
         v.c1r[i] = ok ? c1a[r] : 0.0f;
         v.ipqr[i] = ok && ipqa ? ipqa[r] : 0.0f;
-        v.posr[i] = ok && posa ? posa[r] : 0;
     }
     for (int i = threadIdx.x; i < TN; i += NTHREADS) {
         const int c = col0 + i;
         const bool ok = c < n_rows_b;
         v.c1c[i] = ok ? c1b[c] : 0.0f;
         v.ipqc[i] = ok && ipqb ? ipqb[c] : 0.0f;
-        v.posc[i] = ok && posb ? posb[c] : 0;
-    }
-}
-
-// ---- K5 / K6: fused count pass ------------------------------------------
-
-template <int FORM>
-__global__ void __launch_bounds__(NTHREADS)
-ld_band_count_kernel(const int8_t* __restrict__ g, const float* __restrict__ c1,
-                     const float* __restrict__ ipq, const int* __restrict__ pos,
-                     const int* __restrict__ cij, int n_rows, int W,
-                     int block_m, int block_n, int n_sub_m, int n_sub_n,
-                     int n_hap, float n_f, float inv_n, float thres,
-                     int max_dist, int sel, int exact_mask, int use_dist,
-                     int* __restrict__ out) {
-    __shared__ __align__(16) Smem sm;
-    __shared__ RowVecs vec;
-    __shared__ int warp_cnt[NTHREADS / 32];
-    const SubTile st = decode_subtile(cij, n_sub_m, n_sub_n);
-    const int row0 = st.bi * block_m + st.lr0;
-    const int col0 = st.bj * block_n + st.lc0;
-    // a sub-tile wholly on or above the diagonal keeps nothing
-    // (strict lower triangle: col < row); the whole block returns together
-    if (col0 >= row0 + min(TM, block_m - st.lr0)) return;
-
-    int acc[MI][NI][4];
-    count_tile<FORM>(sm, g, row0, n_rows, g, col0, n_rows, W, acc);
-    stage_vecs(vec, c1, c1, ipq, ipq, pos, pos, row0, n_rows, col0, n_rows);
-    __syncthreads();
-
-    int cnt = 0;
-#pragma unroll
-    for (int mi = 0; mi < MI; ++mi)
-#pragma unroll
-        for (int ni = 0; ni < NI; ++ni)
-#pragma unroll
-            for (int e = 0; e < 4; ++e) {
-                const int r = acc_row(mi, e);
-                const int c = acc_col(ni, e);
-                const int rg = row0 + r;
-                const int cg = col0 + c;
-                if (st.lr0 + r >= block_m || st.lc0 + c >= block_n) continue;
-                if (rg >= n_rows || cg >= n_rows || cg >= rg) continue;
-                bool keep;
-                if (exact_mask) {
-                    keep = exact_keep(acc[mi][ni][e], vec.c1r[r], vec.c1c[c],
-                                      n_hap, thres, sel);
-                } else {
-                    keep = fallback_meas(acc[mi][ni][e], vec.c1r[r],
-                                         vec.c1c[c], vec.ipqr[r],
-                                         vec.ipqc[c], n_f, inv_n,
-                                         sel) >= thres;
-                }
-                if (use_dist) keep = keep && abs(vec.posr[r] - vec.posc[c]) <= max_dist;
-                cnt += keep ? 1 : 0;
-            }
-    cnt = __reduce_add_sync(0xffffffffu, cnt);
-    if ((threadIdx.x & 31) == 0) warp_cnt[threadIdx.x >> 5] = cnt;
-    __syncthreads();
-    if (threadIdx.x == 0) {
-        int total = 0;
-#pragma unroll
-        for (int w = 0; w < NTHREADS / 32; ++w) total += warp_cnt[w];
-        if (total) atomicAdd(out + st.k, total);
     }
 }
 
@@ -577,8 +437,7 @@ ld_band_sweep_kernel(const int8_t* __restrict__ ga,
 
     int acc[MI][NI][4];
     count_tile<FORM>(sm, ga, row0, n_rows_a, gb, col0, n_rows_b, W, acc);
-    stage_vecs(vec, c1a, c1b, ipqa, ipqb, nullptr, nullptr, row0, n_rows_a,
-               col0, n_rows_b);
+    stage_vecs(vec, c1a, c1b, ipqa, ipqb, row0, n_rows_a, col0, n_rows_b);
     __syncthreads();
 
     const bool need_ld = r2 || dp || (meas && sel == 1);
@@ -644,8 +503,7 @@ ld_triangle_kernel(const int8_t* __restrict__ g, const float* __restrict__ c1,
 
     int acc[MI][NI][4];
     count_tile<FORM>(sm, g, row0, n_rows, g, col0, n_rows, W, acc);
-    stage_vecs(vec, c1, c1, ipq, ipq, nullptr, nullptr, row0, n_rows, col0,
-               n_rows);
+    stage_vecs(vec, c1, c1, ipq, ipq, row0, n_rows, col0, n_rows);
     __syncthreads();
 
 #pragma unroll
@@ -681,20 +539,6 @@ ld_triangle_kernel(const int8_t* __restrict__ g, const float* __restrict__ c1,
 
 inline int n_sub(int block) { return (block + TM - 1) / TM; }
 
-// The kernel instance for operand form ``form`` (a runtime int), or
-// nullptr for a form with no instance.
-template <typename Kernel>
-Kernel pick(int form, Kernel s8, Kernel bits, Kernel bf16 = nullptr,
-            Kernel tf32 = nullptr) {
-    switch (form) {
-        case FORM_S8: return s8;
-        case FORM_BITS: return bits;
-        case FORM_BF16: return bf16;
-        case FORM_TF32: return tf32;
-        default: return nullptr;
-    }
-}
-
 }  // namespace
 
 // ---- plain C interface (loaded with ctypes) ------------------------------
@@ -708,26 +552,6 @@ Kernel pick(int form, Kernel s8, Kernel bits, Kernel bf16 = nullptr,
 // is checked the same way.
 
 extern "C" {
-
-int ldk_band_count(const void* g, const void* c1, const void* ipq,
-                   const void* pos, const void* cij, int n_blocks,
-                   int n_rows, int W, int block_m, int block_n, int n_hap,
-                   float n_f, float inv_n, float thres, int max_dist,
-                   int sel, int exact_mask, int use_dist, int form,
-                   void* out, void* stream) {
-    auto kernel = pick(form, ld_band_count_kernel<FORM_S8>,
-                       ld_band_count_kernel<FORM_BITS>);
-    if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
-    const int sm_ = n_sub(block_m), sn_ = n_sub(block_n);
-    kernel<<<n_blocks * sm_ * sn_, NTHREADS, 0,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int8_t*>(g), static_cast<const float*>(c1),
-        static_cast<const float*>(ipq), static_cast<const int*>(pos),
-        static_cast<const int*>(cij), n_rows, W, block_m, block_n, sm_, sn_,
-        n_hap, n_f, inv_n, thres, max_dist, sel, exact_mask, use_dist,
-        static_cast<int*>(out));
-    return static_cast<int>(cudaGetLastError());
-}
 
 int ldk_band_sweep(const void* ga, const void* gb, const void* c1a,
                    const void* c1b, const void* ipqa, const void* ipqb,

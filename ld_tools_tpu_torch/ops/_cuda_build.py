@@ -1,18 +1,20 @@
-"""Build and bind the hand-written CUDA kernels (csrc/ld_kernels.cu).
+"""Build and bind the hand-written CUDA kernels (every csrc/*.cu).
 
-nvcc compiles the source into a shared library with a plain C interface,
-loaded with ctypes: no PyTorch headers, so the build takes seconds.  The
-library goes to ``ld_tools_tpu_torch/_build/`` at first use, through a
-per-process temporary name and an atomic rename (concurrent builds never
-expose a half-written library), and is rebuilt when the source is
-newer.  Pointers and the stream cross as ``ctypes.c_void_p``; every entry
-point returns ``cudaGetLastError()`` and :func:`check` raises on a
-non-zero code.
+nvcc compiles each source into an object, all of them at once, and links
+them into one shared library with a plain C interface, loaded with
+ctypes: no PyTorch headers, so the build takes seconds.  The library goes
+to ``ld_tools_tpu_torch/_build/`` at first use, through a per-process
+temporary name and an atomic rename (concurrent builds never expose a
+half-written library), and is rebuilt when any source or header under
+csrc/ is newer.  Pointers and the stream cross as ``ctypes.c_void_p``;
+every entry point returns ``cudaGetLastError()`` (or its own refusal)
+and :func:`check` raises on a non-zero code.
 """
 
 from __future__ import annotations
 
 import ctypes
+import glob
 import os
 import shutil
 import subprocess
@@ -21,7 +23,11 @@ import time
 
 from ld_tools_tpu_torch.utils.paths import BUILD_DIR, PKG_ROOT
 
-SRC = os.path.join(PKG_ROOT, "csrc", "ld_kernels.cu")
+CSRC = os.path.join(PKG_ROOT, "csrc")
+# ld_kernels.cu: the mma.sync triangle and band sweep (K1, K1b, K2, K3,
+# K4, K8); ld_count_sm90.cu: the wgmma / TMA count pass (K5, K6)
+SOURCES = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cu"))))
+HEADERS = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
 LIB = os.path.join(BUILD_DIR, "libld_kernels.so")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -30,8 +36,11 @@ NVCC_FLAGS = (
     # the plain versions do op by op: FMA contraction would let the f32
     # fallback masks of the count and fetch passes disagree
     "-fmad=false",
-    "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-Xcompiler", "-fPIC",
 )
+# cuTensorMapEncodeTiled (the count pass's TMA descriptor) comes through
+# cudaGetDriverEntryPoint*, so the library links the runtime only
+LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
 _lock = threading.Lock()
 _lib = None
@@ -42,7 +51,7 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "ldk_band_count": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I,
-        _I, _I, _I, _I, _P, _P,
+        _I, _I, _I, _I, _I, _P, _P,
     ),
     "ldk_band_sweep": (
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
@@ -53,7 +62,7 @@ _SIGNATURES = {
     ),
 }
 
-# operand forms of the rows (enum Form in csrc/ld_kernels.cu)
+# operand forms of the rows (enum Form in csrc/ld_common.cuh)
 FORM_S8 = 0     # int8 {0,1} haplotypes
 FORM_BITS = 1   # the store's bitpacked bytes, 8 haplotypes per byte
 FORM_BF16 = 2   # int8 rows, bf16 tensor-core products (triangle only)
@@ -74,33 +83,70 @@ def _nvcc() -> str:
     )
 
 
-def build(force: bool = False, verbose: bool = False) -> dict:
-    """Compile the kernels if the library is missing or older than the
-    source.  Returns {"seconds": build time (0.0 when up to date),
-    "log": nvcc's output}; ``verbose`` adds ``-Xptxas -v`` (registers,
-    shared memory and spills per kernel)."""
-    if (not force and os.path.exists(LIB)
-            and os.path.getmtime(LIB) >= os.path.getmtime(SRC)):
-        return {"seconds": 0.0, "log": ""}
-    os.makedirs(BUILD_DIR, exist_ok=True)
-    tmp = f"{LIB}.tmp.{os.getpid()}"
-    cmd = [_nvcc(), *NVCC_FLAGS]
-    if verbose:
-        cmd += ["-Xptxas", "-v"]
-    cmd += [SRC, "-o", tmp]
-    t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True, timeout=600)
-    if proc.returncode != 0:
+def _stale() -> bool:
+    """True when the library is missing or older than any source or
+    header under csrc/."""
+    if not os.path.exists(LIB):
+        return True
+    newest = max(os.path.getmtime(f) for f in SOURCES + HEADERS)
+    return os.path.getmtime(LIB) < newest
+
+
+def _remove(paths) -> None:
+    for path in paths:
         try:
-            os.unlink(tmp)
+            os.unlink(path)
         except OSError:
             pass
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{proc.stdout}{proc.stderr}"
-        )
+
+
+def build(force: bool = False, verbose: bool = False) -> dict:
+    """Compile the kernels if the library is stale (:func:`_stale`): one
+    nvcc per source, all started together, then one link.  Returns
+    {"seconds": build time (0.0 when up to date), "log": nvcc's output};
+    ``verbose`` adds ``-Xptxas -v`` (registers, shared memory and spills
+    per kernel)."""
+    if not force and not _stale():
+        return {"seconds": 0.0, "log": ""}
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    nvcc = _nvcc()
+    tag = f"tmp.{os.getpid()}"
+    objs = [os.path.join(BUILD_DIR, f"{os.path.basename(src)}.{tag}.o")
+            for src in SOURCES]
+    tmp = f"{LIB}.{tag}"
+    extra = ["-Xptxas", "-v"] if verbose else []
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [nvcc, *NVCC_FLAGS, *extra, "-c", src, "-o", obj],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for src, obj in zip(SOURCES, objs)]
+    logs, failed = [], []
+    try:
+        for src, proc in zip(SOURCES, procs):
+            out = proc.communicate(timeout=600)[0]
+            logs.append(out)
+            if proc.returncode != 0:
+                failed.append(
+                    f"{os.path.basename(src)} ({proc.returncode}):\n{out}")
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.communicate()
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        link = subprocess.run([nvcc, *LINK_FLAGS, *objs, "-o", tmp],
+                              capture_output=True, text=True, timeout=600)
+        if link.returncode != 0:
+            _remove([tmp])
+            raise RuntimeError(f"nvcc link failed ({link.returncode}):\n"
+                               f"{link.stdout}{link.stderr}")
+    finally:
+        _remove(objs)
     os.replace(tmp, LIB)
     return {"seconds": time.perf_counter() - t0,
-            "log": proc.stdout + proc.stderr}
+            "log": "".join(logs) + link.stdout + link.stderr}
 
 
 def lib():

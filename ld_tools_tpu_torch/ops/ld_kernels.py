@@ -1,11 +1,11 @@
 """Blocked all-pairs LD kernels: the counterpart of ld_tools_tpu/ops/ld_pallas.py.
 
-Each wrapper launches its hand-written CUDA kernel (csrc/ld_kernels.cu)
-for tensors on the card and runs its plain PyTorch version for tensors
-on the CPU; any other device raises.  Nothing falls back: a CUDA tensor
-either goes through the kernel or the call raises.  Every launching
-wrapper keeps an integer ``launches`` count, bumped only where it
-launches its kernel.
+Each wrapper launches its hand-written CUDA kernel (csrc/ld_kernels.cu;
+the count pass csrc/ld_count_sm90.cu) for tensors on the card and runs
+its plain PyTorch version for tensors on the CPU; any other device
+raises.  Nothing falls back: a CUDA tensor either goes through the
+kernel or the call raises.  Every launching wrapper keeps an integer
+``launches`` count, bumped only where it launches its kernel.
 
 Map to ld_pallas.py (by line):
 
@@ -158,10 +158,44 @@ def _check_matrix(g: torch.Tensor, name: str, packed: bool = False) -> None:
 
 
 def _check_grid(n_blocks: int, block_m: int, block_n: int) -> None:
-    """One thread block per 128 x 128 sub-tile: the grid must fit."""
+    """The triangle and sweep kernels launch one thread block per 128 x
+    128 sub-tile: the grid must fit."""
     n_sub = -(-block_m // 128) * -(-block_n // 128)
     if n_blocks * n_sub >= 2**31:
         raise ValueError(f"{n_blocks} blocks exceed one launch's grid")
+
+
+# The count kernel's tile (csrc/ld_count_sm90.cu CT_M x CT_N) and the
+# largest block side it takes (its row indices bi * block, bi < 2^15, stay
+# in int32; the scan's count_block never exceeds it)
+COUNT_TILE = (128, 320)
+MAX_COUNT_BLOCK = 2048
+
+
+def count_tiles(n_blocks: int, block_m: int, block_n: int) -> int:
+    """The length of the count kernel's linear tile walk: every block
+    split into ceil(block_m / 128) x ceil(block_n / 320) tiles."""
+    tm, tn = COUNT_TILE
+    return n_blocks * -(-block_m // tm) * -(-block_n // tn)
+
+
+def _sm_count(dev: torch.device) -> int:
+    return torch.cuda.get_device_properties(dev).multi_processor_count
+
+
+def _count_grid(n_blocks: int, block_m: int, block_n: int,
+                dev: torch.device) -> int:
+    """The count kernel's persistent grid, min(SMs, tiles); raises on a
+    block side it does not take or a walk past int32."""
+    for name, side in (("block_m", block_m), ("block_n", block_n)):
+        if not 0 < side <= MAX_COUNT_BLOCK:
+            raise ValueError(f"the count kernel takes {name} in (0, "
+                             f"{MAX_COUNT_BLOCK}], got {side}")
+    tiles = count_tiles(n_blocks, block_m, block_n)
+    if tiles >= 2**31:
+        raise ValueError(f"{n_blocks} blocks exceed the count kernel's "
+                         "int32 tile walk")
+    return min(_sm_count(dev), tiles) if tiles else 0
 
 
 def _vec(t: torch.Tensor, n: int, dtype, name: str) -> torch.Tensor:
@@ -869,18 +903,20 @@ def _count_launch(site, form, g, c1, ipq, pos, cij, n_hap, max_dist, thres,
     c1, ipq, pos, cij = _count_prep(g, c1, ipq, pos, cij, sel,
                                     form == _cuda_build.FORM_BITS)
     nb = cij.shape[0]
-    # the kernel adds each sub-tile's count into its block's slot
+    v, w = g.shape
+    if w == 0:
+        raise ValueError("the count kernel needs rows of at least 16 bytes")
+    grid = _count_grid(nb, block_m, block_n, g.device)
+    # the kernel adds each tile's count into its block's slot
     out = torch.zeros((nb,), dtype=torch.int32, device=g.device)
-    if nb == 0:
+    if nb == 0 or v == 0:
         return out
-    _check_grid(nb, block_m, block_n)
     n_f, inv_n = _f32_inv(n_hap)
     err = _launch(
         "ldk_band_count", g.device, g.data_ptr(), c1.data_ptr(),
-        ipq.data_ptr(), pos.data_ptr(), cij.data_ptr(), nb, g.shape[0],
-        g.shape[1], block_m, block_n, n_hap, n_f, inv_n, thres,
-        max_dist if use_dist else 0, sel, int(exact_mask), int(use_dist),
-        form, out.data_ptr(),
+        ipq.data_ptr(), pos.data_ptr(), cij.data_ptr(), nb, v, w, block_m,
+        block_n, n_hap, n_f, inv_n, thres, max_dist if use_dist else 0, sel,
+        int(exact_mask), int(use_dist), form, grid, out.data_ptr(),
     )
     _cuda_build.check(err, f"ld_band_count_kernel (form {form})")
     site.launches += 1

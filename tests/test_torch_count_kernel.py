@@ -1,0 +1,127 @@
+"""The host side of the CUDA kernels that a CPU run can check: the C ABI
+the ctypes bindings declare, and the count kernel's tile walk.
+
+The kernels themselves run only on the card (chip_smoke.py holds each
+against its plain version there); their plain versions' parity with
+ld_pallas is in test_torch_ld_kernels.py and test_torch_packed_kernels.py.
+"""
+
+import ctypes
+import glob
+import os
+import re
+
+import numpy as np
+import pytest
+
+from ld_tools_tpu_torch.ops import _cuda_build
+from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+
+def _c_prototypes() -> dict:
+    """{name: (kind, ...)} of every function defined inside an
+    ``extern "C" {`` block of csrc/*.cu; kind is "P" (a pointer), "I"
+    (an int) or "F" (a float) per argument."""
+    protos = {}
+    for path in sorted(glob.glob(os.path.join(_cuda_build.CSRC, "*.cu"))):
+        with open(path) as fh:
+            src = fh.read()
+        for block in re.findall(r'extern "C" \{(.*?)\}\s*// extern "C"', src,
+                                re.S):
+            for name, args in re.findall(
+                    r"^[\w *]+?\b(ldk_\w+)\(([^)]*)\)\s*\{", block, re.M):
+                kinds = []
+                for arg in args.split(","):
+                    arg = " ".join(arg.split())
+                    if "*" in arg:
+                        kinds.append("P")
+                    elif arg.split()[-2] == "float":
+                        kinds.append("F")
+                    elif arg.split()[-2] == "int":
+                        kinds.append("I")
+                    else:
+                        raise AssertionError(f"{name}: unknown argument {arg!r}")
+                protos[name] = tuple(kinds)
+    return protos
+
+
+def _count_tile_walk(cij, n_rows: int, block_m: int, block_n: int) -> dict:
+    """The live tiles of the count kernel's walk, decoded as its
+    ``count_tile_at`` decodes them: {name: int64 array} with "t" (the
+    walk index), "k" (the block), "row0"/"col0" (the tile's first matrix
+    row/column), "rows" (its rows inside the block and the matrix) and
+    "cols" (its columns inside the block).  A tile is live when its last
+    row lies below its first column; the kernel loads nothing of the
+    others.  The kernel walks on its own; this mirrors its rule."""
+    tm, tn = lk.COUNT_TILE
+    n_tm, n_tn = -(-block_m // tm), -(-block_n // tn)
+    cij = np.asarray(cij, dtype=np.int64).reshape(-1)
+    t = np.arange(lk.count_tiles(cij.size, block_m, block_n), dtype=np.int64)
+    k, s = np.divmod(t, n_tm * n_tn)
+    tr, tc = np.divmod(s, n_tn)
+    row0 = (cij[k] >> 16) * block_m + tr * tm
+    col0 = (cij[k] & 0xFFFF) * block_n + tc * tn
+    rows = np.minimum(np.minimum(tm, block_m - tr * tm), n_rows - row0)
+    cols = np.minimum(tn, block_n - tc * tn)
+    live = (rows > 0) & (col0 < row0 + rows - 1)
+    return {name: a[live] for name, a in (
+        ("t", t), ("k", k), ("row0", row0), ("col0", col0), ("rows", rows),
+        ("cols", cols))}
+
+
+_KIND = {ctypes.c_void_p: "P", ctypes.c_int: "I", ctypes.c_float: "F"}
+
+
+def test_the_c_sources_define_each_bound_entry_point_once():
+    protos = _c_prototypes()
+    assert set(protos) == set(_cuda_build._SIGNATURES) | {"ldk_error_string"}
+    assert _cuda_build.SOURCES == tuple(sorted(
+        glob.glob(os.path.join(_cuda_build.CSRC, "*.cu"))))
+
+
+@pytest.mark.parametrize("entry", sorted(_cuda_build._SIGNATURES))
+def test_ctypes_signatures_match_the_c_prototypes(entry):
+    """Each entry point's ctypes argtypes have the count and the pointer /
+    int / float kind of its C prototype: a mismatch would otherwise show
+    only on the card, as a cut pointer or a misread argument."""
+    want = _c_prototypes()[entry]
+    got = tuple(_KIND[t] for t in _cuda_build._SIGNATURES[entry])
+    assert got == want
+
+
+@pytest.mark.parametrize("block,n_rows", [
+    (16, 16 * 9 + 5),
+    (200, 200 * 4 + 37),
+    (640, 640 * 3 + 1),
+    (1000, 1000 * 2 + 999),
+    (2048, 2048 + 300),
+])
+def test_count_tile_walk_covers_every_strict_lower_cell_once(block, n_rows):
+    """At count blocks the 128 x 320 tile does and does not divide, with a
+    ragged last block: every cell of every listed block that lies below
+    the diagonal inside the matrix falls in exactly one live tile of the
+    walk, and no live tile holds nothing to count."""
+    nb = -(-n_rows // block)
+    bi, bj = np.tril_indices(nb)
+    keep = np.random.default_rng(block).random(bi.size) < 0.8
+    keep[bi == nb - 1] = True  # the ragged block row always
+    bi, bj = bi[keep], bj[keep]
+    cij = lk.pack_block_coords(bi, bj)
+    walk = _count_tile_walk(cij, n_rows, block, block)
+    assert lk.count_tiles(len(cij), block, block) >= walk["t"].size > 0
+    assert np.all(np.diff(walk["t"]) > 0)
+    hits = np.zeros((len(cij), block, block), dtype=np.int32)
+    for k, row0, col0, rows, cols in zip(walk["k"], walk["row0"],
+                                         walk["col0"], walk["rows"],
+                                         walk["cols"]):
+        r = row0 + np.arange(rows)[:, None]
+        c = col0 + np.arange(cols)[None, :]
+        lr, lc = row0 - bi[k] * block, col0 - bj[k] * block
+        cells = c < r
+        assert cells.any(), "a live tile with nothing to count"
+        hits[k, lr:lr + rows, lc:lc + cols] += cells
+    rows = bi[:, None] * block + np.arange(block)[None, :]
+    cols = bj[:, None] * block + np.arange(block)[None, :]
+    want = ((cols[:, None, :] < rows[:, :, None])
+            & (rows < n_rows)[:, :, None])
+    np.testing.assert_array_equal(hits, want.astype(np.int32))

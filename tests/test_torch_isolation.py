@@ -246,6 +246,7 @@ def test_launches_make_the_tensor_device_current(entry, monkeypatch):
     monkeypatch.setattr(_cuda_build, "lib", lambda: FakeLib())
     monkeypatch.setattr(torch.cuda, "device", _FakeCudaDevice)
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
+    monkeypatch.setattr(lk, "_sm_count", lambda dev: 132)  # an H100's
     card1 = torch.device("cuda", 1)
     assert lk._launch(entry, card1, 7, 8) == 0
     assert seen == [(entry, card1, 1001)]
@@ -271,6 +272,95 @@ def test_launches_make_the_tensor_device_current(entry, monkeypatch):
     assert [(name, dev) for name, dev, _ in seen] == [
         (entry, torch.device("cpu"))]
     lk.reset_launches()
+
+
+def _fake_count_lib(monkeypatch, n_sm=132):
+    """A FakeLib for ldk_band_count that records each call's arguments,
+    on a faked card of ``n_sm`` SMs."""
+    from ld_tools_tpu_torch.ops import _cuda_build
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    calls = []
+
+    class FakeLib:
+        def __getattr__(self, name):
+            def call(*args):
+                calls.append((name, args))
+                return 0
+            return call
+
+    monkeypatch.setattr(_cuda_build, "lib", lambda: FakeLib())
+    monkeypatch.setattr(torch.cuda, "device", _FakeCudaDevice)
+    monkeypatch.setattr(torch.cuda, "current_stream",
+                        lambda dev: types.SimpleNamespace(cuda_stream=1000))
+    monkeypatch.setattr(lk, "_sm_count", lambda dev: n_sm)
+    return calls
+
+
+@pytest.mark.parametrize("n_blocks,block,grid", [
+    (1, 16, 1),         # one 128 x 320 tile: one thread block
+    (3, 640, 30),       # 10 tiles a block
+    (1000, 640, 132),   # more tiles than SMs: one persistent block per SM
+    (3, 1000, 96),      # 8 x 4 tiles a block, 96 in all
+])
+def test_count_launch_passes_the_persistent_grid(n_blocks, block, grid,
+                                                 monkeypatch):
+    """ld_band_count_kernel walks blocks x tiles in min(SMs, tiles)
+    persistent thread blocks: _count_launch hands the library every
+    argument of ldk_band_count's prototype, the grid among them, and
+    bumps the site's count once."""
+    from ld_tools_tpu_torch.ops import _cuda_build
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    calls = _fake_count_lib(monkeypatch)
+    lk.reset_launches()
+    g = torch.zeros((40, 32), dtype=torch.uint8)
+    vec = torch.zeros((40,), dtype=torch.float32)
+    cij = torch.zeros((n_blocks,), dtype=torch.int32)
+    out = lk._count_launch(lk.ld_band_count_packed, _cuda_build.FORM_BITS, g,
+                           vec, vec, vec.to(torch.int32), cij, 5008, 7, 0.5,
+                           sel=1, exact_mask=False, use_dist=True,
+                           block_m=block, block_n=block)
+    assert out.shape == (n_blocks,) and not out.any()
+    ((name, args),) = calls
+    assert name == "ldk_band_count"
+    assert len(args) == len(_cuda_build._SIGNATURES[name])
+    (n_blocks_a, n_rows, w, bm, bn, n_hap, _, _, thres, max_dist, sel,
+     exact_mask, use_dist, form, grid_a) = args[5:20]
+    assert (n_blocks_a, n_rows, w, bm, bn, n_hap) == (n_blocks, 40, 32,
+                                                      block, block, 5008)
+    assert (thres, max_dist, sel, exact_mask, use_dist, form) == (
+        0.5, 7, 1, 0, 1, _cuda_build.FORM_BITS)
+    assert grid_a == grid == min(132, lk.count_tiles(n_blocks, block, block))
+    assert args[20] == out.data_ptr() and args[21] == 1000
+    assert lk.ld_band_count_packed.launches == 1
+    lk.reset_launches()
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(block_m=0, block_n=640), "block_m"),
+    (dict(block_m=640, block_n=2049), "block_n"),
+    (dict(block_m=640, block_n=640, width=0), "16 bytes"),
+])
+def test_count_launch_refuses_what_the_kernel_does_not_take(kw, match,
+                                                            monkeypatch):
+    """A block side outside (0, 2048], rows of no bytes and a tile walk
+    past int32 raise before any launch."""
+    from ld_tools_tpu_torch.ops import _cuda_build
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    calls = _fake_count_lib(monkeypatch)
+    width = kw.pop("width", 16)
+    g = torch.zeros((8, width), dtype=torch.int8)
+    vec = torch.zeros((8,), dtype=torch.float32)
+    cij = torch.zeros((2,), dtype=torch.int32)
+    with pytest.raises(ValueError, match=match):
+        lk._count_launch(lk.ld_band_count, _cuda_build.FORM_S8, g, vec, vec,
+                         vec.to(torch.int32), cij, 16, 0, 0.5, sel=0,
+                         exact_mask=True, use_dist=False, **kw)
+    with pytest.raises(ValueError, match="int32 tile walk"):
+        lk._count_grid(20_000_000, 2048, 2048, torch.device("cpu"))
+    assert not calls and lk.ld_band_count.launches == 0
 
 
 def test_packed_resident_raises_without_a_card(monkeypatch):
