@@ -8,15 +8,18 @@ Phases, each of which exits non-zero on any failure:
 1. device   the card's name and power limit (nvidia-smi);
 2. build    nvcc compiles every csrc/*.cu for sm_90a (every instance) and
             prints ptxas's registers, shared memory and spills; cuobjdump
-            -sass must show warpgroup MMAs (GMMA) and no IMMA in both
-            instances of the count kernel (K5, K6: wgmma and TMA);
+            -sass must show warpgroup MMAs (GMMA) and no IMMA in every
+            wgmma instance: both of the count kernel (K5, K6) and the four
+            of the block kernel (K1 / K8 and K4, tiles 320 and 256 wide);
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes the scan and the headline sweep give it (640-row
             blocks, W = 5,120 int8 haplotypes or 640 packed bytes, a ragged
-            row count, monomorphic rows): the triangle kernel on int8 rows
-            (K1), its bf16 and tf32 routes (K1b) and its bit-plane form on
-            the packed bytes (K2); the band sweep (K3) and its bit-plane
-            form (K4); the fused count pass (K5) and its bit-plane form
+            row count, monomorphic rows): the triangle on int8 rows (K1,
+            the wgmma block kernel, bit for bit), the mma.sync triangle's
+            bf16 and tf32 routes (K1b) and its bit-plane form on the packed
+            bytes (K2); the mma.sync band sweep (K3) and the block kernel's
+            packed sweep (K4, bit for bit, also at blocks of 1,000); the
+            fused count pass (K5) and its bit-plane form
             (K6), in both mask modes, both measures, with and without the
             distance window, also at a count block (1,000) that the count
             kernel's 128 x 320 tile does not divide.  Every bit-plane and
@@ -39,7 +42,9 @@ Phases, each of which exits non-zero on any failure:
             chromosome VCF) scanned with -w 1000000 at the default limit,
             where ``auto`` keeps the bytes packed.  The launch counts are
             read around each run and every run's hits are held against an
-            f64 recount of sampled hits and pairs;
+            f64 recount of sampled hits and pairs.  K4's launches in that
+            run are recorded and timed inside it, then replayed beside
+            their plain versions and torch._int_mm;
    sharded  K7 (``ld_band_count_sharded``: K5's or K6's kernel once per
             shard, each shard on its own stream) over [cuda:0] * 4 against
             its plain version on the ragged rows (both forms, with and
@@ -66,14 +71,16 @@ Phases, each of which exits non-zero on any failure:
             counts, and each must have launched its kernels and no other.
 
 K8 (the staged triangle kernel, ``ld_stage_blocks``: K1's kernel at four
-epilogues) is held against its plain version at every stage in phase 3,
-at V = 10,240 with 512-row blocks and on the ragged rows, and timed
-there.  So are K1 at the 512- and 1,024-row blocks and K2 at the
-1,024-row blocks that ``bench.kernels --only fast`` launches.
+epilogues) is held against its plain version bit for bit at every stage
+in phase 3, at V = 10,240 with 512-row blocks and on the ragged rows, and
+timed there (the stage split).  So are K1 at the 512- and 1,024-row
+blocks and K2 at the 1,024-row blocks that ``bench.kernels --only fast``
+launches, and K1 at 200- and 1,000-row blocks, which its tile does not
+divide.
 
 It ends with a JSON line of the build time, the scans' phases and launch
-counts and the headline record, a ``kernels`` JSON line, the nvidia-smi line and, last, the
-device JSON line.  It needs the repository around it and a CUDA card.
+counts and the headline record, a ``kernels`` JSON line, the nvidia-smi
+line and, last, the device JSON line.  It needs the repository around it and a CUDA card.
 """
 
 from __future__ import annotations
@@ -112,30 +119,36 @@ N_TRIANGLE = 10_240  # the headline triangle sweep of bench.py
 N_RAGGED = 10_000    # the ragged check slice: its last block is partial
 N_PARITY = 10_240    # the -E cuda / -E torch store
 LIMIT = "TPU_LD_DENSE_RESIDENT_BYTES"
-SOURCE = "ld_tools_tpu_torch/csrc/ld_kernels.cu"
+SOURCE = "ld_tools_tpu_torch/csrc/ld_kernels.cu"  # K1b, K2, K3 (mma.sync)
 COUNT_SOURCE = "ld_tools_tpu_torch/csrc/ld_count_sm90.cu"  # K5, K6 (K7)
+BLOCK_SOURCE = "ld_tools_tpu_torch/csrc/ld_block_sm90.cu"  # K1, K8, K4
+# the wgmma instances of ld_block_sm90.cu (K8: K1's at four epilogues)
+K1 = "ld_block_kernel<FORM_S8,STORE_TRIANGLE>"
+K4 = "ld_block_kernel<FORM_BITS,STORE_SWEEP>"
 PALLAS = "ld_tools_tpu/ops/ld_pallas.py"
 # K8's stages (ops/ld_kernels.STAGES) and block (bench_microkernels.py's)
 STAGES = ("counts", "scale", "fast", "exact")
 STAGE_BLOCK = 512
 # the other (route, block) pairs ``bench.kernels --only fast`` launches
-BENCH_BLOCKS = (("ld_triangle_kernel", 512), ("ld_triangle_kernel", 1024),
-                ("ld_triangle_kernel<FORM_BITS>", 1024))
+BENCH_BLOCKS = ((K1, 512), (K1, 1024), ("ld_triangle_kernel<FORM_BITS>", 1024))
+# K1 and K4 also at block sides their tile does not divide (the wgmma
+# kernels' 128-row tiles, 256 columns wide at these)
+UNTIDY_BLOCKS = (200, UNTIDY_BLOCK)
 
 
 def _stage_kernel(stage):
     """K8 at one stage: K1's kernel with epilogue EPI_<STAGE>."""
-    return f"ld_triangle_kernel/EPI_{stage.upper()}"
+    return f"{K1}/EPI_{stage.upper()}"
 
 
 # kernel name -> (its tag in ROADMAP.md, the TPU kernel it replaces)
 KERNELS = {
-    "ld_triangle_kernel": ("K1", f"{PALLAS}:259"),
+    K1: ("K1", f"{PALLAS}:259"),
     "ld_triangle_kernel<FORM_BF16>": ("K1b", f"{PALLAS}:292"),
     "ld_triangle_kernel<FORM_TF32>": ("K1b", f"{PALLAS}:292"),
     "ld_triangle_kernel<FORM_BITS>": ("K2", f"{PALLAS}:303"),
     "ld_band_sweep_kernel": ("K3", f"{PALLAS}:747"),
-    "ld_band_sweep_kernel<FORM_BITS>": ("K4", f"{PALLAS}:693"),
+    K4: ("K4", f"{PALLAS}:693"),
     "ld_band_count_kernel": ("K5", f"{PALLAS}:909"),
     "ld_band_count_kernel<FORM_BITS>": ("K6", f"{PALLAS}:949"),
     "ld_band_count_sharded": ("K7", f"{PALLAS}:1206"),
@@ -144,17 +157,17 @@ KERNELS = {
 }
 # launch site (ops/ld_kernels.py) -> the kernel it launches
 KERNEL_OF_SITE = {
-    "ld_triangle_blocks": "ld_triangle_kernel",
+    "ld_triangle_blocks": K1,
     "ld_triangle_blocks_bf16": "ld_triangle_kernel<FORM_BF16>",
     "ld_triangle_blocks_tf32": "ld_triangle_kernel<FORM_TF32>",
     "ld_triangle_blocks_packed": "ld_triangle_kernel<FORM_BITS>",
     "ld_band_sweep_blocks": "ld_band_sweep_kernel",
-    "ld_band_sweep_blocks_packed": "ld_band_sweep_kernel<FORM_BITS>",
+    "ld_band_sweep_blocks_packed": K4,
     "ld_band_count": "ld_band_count_kernel",
     "ld_band_count_packed": "ld_band_count_kernel<FORM_BITS>",
     # K7: K5's (or K6's) kernel launched once per shard
     "ld_band_count_sharded": "ld_band_count_sharded",
-    "ld_stage_blocks": "ld_triangle_kernel/EPI_*",  # one of the four
+    "ld_stage_blocks": f"{K1}/EPI_*",  # one of the four
 }
 
 
@@ -328,17 +341,27 @@ def phase_build():
     _cuda_build.lib()
     log(f"build: nvcc {info['seconds']:.1f}s -> {_cuda_build.LIB}")
     # ptxas names each kernel (mangled) before its resource lines: keep
-    # the kernel's name and template argument beside them
-    kernel = "?"
+    # the kernel's name and template arguments beside them
+    kernel, ptxas = "?", {}
     for ln in info["log"].splitlines():
-        m = re.search(r"Compiling entry function '.*?\d(ld_[a-z_]+?_kernel)"
-                      r"ILi(\d+)E", ln)
-        if m:
-            kernel = f"{m.group(1)}<{m.group(2)}>"
+        if "Compiling entry function" in ln:
+            kernel = _instance(ln) or "?"
         elif "registers" in ln or "spill" in ln:
             log(f"  ptxas {kernel}: {ln.strip()}")
-    check_count_sass(_cuda_build.LIB)
-    return info["seconds"]
+            ptxas.setdefault(kernel, []).append(
+                ln.split(":", 1)[-1].strip() if "registers" in ln
+                else ln.strip())
+    sass = check_wgmma_sass(_cuda_build.LIB)
+    return dict(seconds=info["seconds"], ptxas=ptxas, sass=sass)
+
+
+def _instance(line):
+    """``ld_..._kernel<a,b,...>`` (the template's int arguments) of the
+    mangled kernel name on ``line``, or None."""
+    m = re.search(r"\d(ld_[a-z_]+?_kernel)I((?:Li\d+E)+)E", line)
+    if not m:
+        return None
+    return f"{m.group(1)}<{','.join(re.findall(r'Li(\d+)E', m.group(2)))}>"
 
 
 def _cuobjdump():
@@ -361,28 +384,35 @@ def _cuobjdump():
                        "SASS")
 
 
-def check_count_sass(lib):
-    """Both instances of the count kernel (K5 <0>, K6 <1>) run warpgroup
-    MMAs: their SASS holds GMMA instructions and no IMMA (mma.sync)."""
+# the wgmma instances (template arguments: form, and for ld_block_kernel
+# the store and the tile width): K5, K6; K1 / K8 and K4 at both widths
+WGMMA_INSTANCES = ("ld_band_count_kernel<0>", "ld_band_count_kernel<1>",
+                   "ld_block_kernel<0,0,320>", "ld_block_kernel<0,0,256>",
+                   "ld_block_kernel<1,1,320>", "ld_block_kernel<1,1,256>")
+
+
+def check_wgmma_sass(lib):
+    """Every instance of the count kernel (K5 <0>, K6 <1>) and of the
+    block kernel (K1 / K8 <0,0,TN>, K4 <1,1,TN>) runs warpgroup MMAs: its
+    SASS holds GMMA instructions and no IMMA (mma.sync)."""
     sass = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     ops, fn = {}, None
     for ln in sass.splitlines():
-        m = re.search(r"Function : \S*?\d(ld_[a-z_]+?_kernel)ILi(\d+)E", ln)
-        if m:
-            fn = f"{m.group(1)}<{m.group(2)}>"
-            ops[fn] = {"GMMA": 0, "IMMA": 0}
-        elif "Function :" in ln:
-            fn = None
+        if "Function :" in ln:
+            fn = _instance(ln)
+            if fn:
+                ops[fn] = {"GMMA": 0, "IMMA": 0}
         elif fn:
             for op in ops[fn]:
                 ops[fn][op] += len(re.findall(rf"\b\w*{op}\b", ln))
-    for inst in ("ld_band_count_kernel<0>", "ld_band_count_kernel<1>"):
+    for inst in WGMMA_INSTANCES:
         n = ops.get(inst)
         check(n is not None, f"no SASS for {inst} in {lib}")
         check(n["GMMA"] > 0 and n["IMMA"] == 0,
               f"{inst} SASS: {n['GMMA']} GMMA, {n['IMMA']} IMMA instructions")
         log(f"  sass {inst}: {n['GMMA']} GMMA, {n['IMMA']} IMMA")
+    return {inst: ops[inst] for inst in WGMMA_INSTANCES}
 
 
 def _check_rows(gp_host, pos, n_rows):
@@ -413,7 +443,7 @@ def _triangle_routes():
     from ld_tools_tpu_torch.ops import ld_kernels as lk
 
     return {
-        "ld_triangle_kernel": (lk.ld_triangle_blocks,
+        K1: (lk.ld_triangle_blocks,
                                lk.ld_triangle_blocks_plain, False,
                                H100_INT8_OPS),
         "ld_triangle_kernel<FORM_BF16>": (lk.ld_triangle_blocks_bf16,
@@ -430,10 +460,10 @@ def _triangle_routes():
 
 def _check_triangle(name, g, gq, c1, ipq, cij, what, block=BLOCK):
     """A triangle route against its plain version on the ``block``-row
-    blocks ``cij``, fast and exact epilogues, D' on and off, and against
-    K1 (its int8 twin) bit for bit; the largest abs error against the
-    plain version.  ``g`` holds the int8 rows, ``gq`` the same rows
-    packed."""
+    blocks ``cij``, fast and exact epilogues, D' on and off (K1 bit for
+    bit, the mma.sync routes within 1e-6), and against K1 (its int8 twin)
+    bit for bit; the largest abs error against the plain version.  ``g``
+    holds the int8 rows, ``gq`` the same rows packed."""
     import torch
 
     from ld_tools_tpu_torch.ops import ld_kernels as lk
@@ -457,6 +487,9 @@ def _check_triangle(name, g, gq, c1, ipq, cij, what, block=BLOCK):
             err = max(err, e)
             tag = f"{name} {what} block {block} {epi}/dp={want_dp}"
             check(e <= 1e-6, f"{tag}: max abs err {e}")
+            check(name != K1 or torch.equal(a, b),
+                  f"{tag}: differs from the plain version in "
+                  f"{int((a != b).sum())} cells")
             check(torch.equal(a, t), f"{tag}: differs from K1")
         del got, ref, twin
     return err
@@ -517,7 +550,7 @@ def phase_triangles(results, g1, gq1):
     gp1_dev = gq1[:, :N_HAP // 8].contiguous()
     # each route's entry point: (its name, the call)
     paths = {
-        "ld_triangle_kernel": ("ld_triangle_matrix", lambda: (
+        K1: ("ld_triangle_matrix", lambda: (
             lk.ld_triangle_matrix(G1_dev, N_HAP, **fast))),
         "ld_triangle_kernel<FORM_BF16>": (
             "ld_triangle_matrix(mxu_dtype=bfloat16)",
@@ -578,14 +611,19 @@ def phase_triangles(results, g1, gq1):
         cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
         e = _check_triangle(name, g1, gq1, c1, ipq, cij, f"V={v1}", block)
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
-    log(f"K1 at blocks 512 and 1024, K2 at 1024: equal the plain versions "
-        f"(V={v1})")
+    for block in UNTIDY_BLOCKS:
+        bi, bj = lk._triangle_coords(-(-v1 // block))
+        cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
+        e = _check_triangle(K1, g1, gq1, c1, ipq, cij, f"V={v1}", block)
+        results[K1]["max_abs_err"] = max(results[K1]["max_abs_err"], e)
+    log(f"K1 at blocks 512, 1024, {UNTIDY_BLOCKS}, K2 at 1024: equal the "
+        f"plain versions (V={v1})")
     torch.cuda.empty_cache()
 
 
 def _check_stage(stage, g, c1, ipq, cij, what):
-    """K8 at one stage against its plain version on the blocks ``cij``:
-    counts bit for bit, f32 values within 1e-6; the largest abs error."""
+    """K8 at one stage against its plain version on the blocks ``cij``, bit
+    for bit; the largest abs error (0)."""
     import torch
 
     from ld_tools_tpu_torch.ops import ld_kernels as lk
@@ -594,12 +632,9 @@ def _check_stage(stage, g, c1, ipq, cij, what):
     got = lk.ld_stage_blocks(g, c1, ipq, cij, N_HAP, **kw)
     ref = lk.ld_stage_blocks_plain(g, c1, ipq, cij, N_HAP, **kw)
     torch.cuda.synchronize()
-    if stage == "counts":
-        check(torch.equal(got, ref), f"K8 counts {what}: differ in "
-              f"{int((got != ref).sum())} cells")
-        return 0.0
     e = float((got - ref).abs().max())
-    check(e <= 1e-6, f"K8 {stage} {what}: max abs err {e}")
+    check(torch.equal(got, ref), f"K8 {stage} {what}: differs in "
+          f"{int((got != ref).sum())} cells (max abs err {e})")
     return e
 
 
@@ -642,6 +677,11 @@ def phase_stage(results, g):
         log(f"K8 {name}: {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
             f"{b[0]:.3f} ms ({b[1]}), torch._int_mm {mm:.3f} ms, max abs "
             f"err {err:.3g}")
+    t = {stage: results[_stage_kernel(stage)]["ms"] for stage in STAGES}
+    log(f"K8 split: count and store {t['counts']:.3f} ms, the multiply "
+        f"{t['scale'] - t['counts']:+.3f}, the fast r^2 "
+        f"{t['fast'] - t['counts']:+.3f}, the exact r^2 over the fast "
+        f"{t['exact'] - t['fast']:+.3f} ms")
     del out
     torch.cuda.empty_cache()
 
@@ -718,6 +758,11 @@ def phase_ragged(gp_host, pos, results):
         e = _check_triangle(name, g, gq, c1r, ipqr, cijb, f"V={n_rows}",
                             block)
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
+    for block in UNTIDY_BLOCKS:
+        bib, bjb = np.tril_indices(-(-n_rows // block))
+        cijb = torch.from_numpy(lk.pack_block_coords(bib, bjb)).to(dev)
+        e = _check_triangle(K1, g, gq, c1r, ipqr, cijb, f"V={n_rows}", block)
+        results[K1]["max_abs_err"] = max(results[K1]["max_abs_err"], e)
     # K8 at the microkernel bench's 512-row blocks: the last is partial
     bi8, bj8 = np.tril_indices(-(-n_rows // STAGE_BLOCK))
     cij8 = torch.from_numpy(lk.pack_block_coords(bi8, bj8)).to(dev)
@@ -727,31 +772,37 @@ def phase_ragged(gp_host, pos, results):
         r["max_abs_err"] = max(r["max_abs_err"], e)
     log(f"K8: every stage equals the plain version ({n_rows} ragged rows, "
         f"{STAGE_BLOCK}-row blocks)")
-    hit = torch.cat([cij[:20], cij[-20:]])  # the last holds partial blocks
-    err = {"ld_band_sweep_kernel": 0.0, "ld_band_sweep_kernel<FORM_BITS>": 0.0}
-    for outs, sel in ((("cab",), 0), (("cab", "r2", "dp", "meas"), 0),
-                      (("meas",), 1)):
-        kw = dict(outs=outs, sel=sel, block_m=BLOCK, block_n=BLOCK)
-        vecs = (c1r, c1r, ipqr, ipqr, hit, N_HAP)
-        got3 = lk.ld_band_sweep_blocks(g, g, *vecs, **kw)
-        got4 = lk.ld_band_sweep_blocks_packed(gq, gq, *vecs, **kw)
-        ref3 = lk.ld_band_sweep_blocks_plain(g, g, *vecs, **kw)
-        ref4 = lk.ld_band_sweep_blocks_packed_plain(gq, gq, *vecs, **kw)
-        for name, got, ref in (("ld_band_sweep_kernel", got3, ref3),
-                               ("ld_band_sweep_kernel<FORM_BITS>", got4,
-                                ref4)):
+    err = {"ld_band_sweep_kernel": 0.0, K4: 0.0}
+    for block, blocks in ((BLOCK, cij), (UNTIDY_BLOCK, ciju)):
+        # the last blocks hold the ragged edge: K4 writes their cells past it
+        hit = torch.cat([blocks[:20], blocks[-20:]])
+        for outs, sel in ((("cab",), 0), (("cab", "r2", "dp", "meas"), 0),
+                          (("meas",), 1)):
+            kw = dict(outs=outs, sel=sel, block_m=block, block_n=block)
+            vecs = (c1r, c1r, ipqr, ipqr, hit, N_HAP)
+            got3 = lk.ld_band_sweep_blocks(g, g, *vecs, **kw)
+            got4 = lk.ld_band_sweep_blocks_packed(gq, gq, *vecs, **kw)
+            ref3 = lk.ld_band_sweep_blocks_plain(g, g, *vecs, **kw)
+            ref4 = lk.ld_band_sweep_blocks_packed_plain(gq, gq, *vecs, **kw)
+            for name, got, ref in (("ld_band_sweep_kernel", got3, ref3),
+                                   (K4, got4, ref4)):
+                for o in outs:
+                    what = f"{name} block {block} {o} sel={sel}"
+                    if o == "cab" or name == K4:
+                        check(torch.equal(got[o], ref[o]),
+                              f"{what}: differs from the plain version in "
+                              f"{int((got[o] != ref[o]).sum())} cells")
+                    if o != "cab":
+                        e = float((got[o] - ref[o]).abs().max())
+                        err[name] = max(err[name], e)
+                        check(e <= 1e-6, f"{what}: max abs err {e}")
             for o in outs:
-                if o == "cab":
-                    check(torch.equal(got[o], ref[o]), f"{name} cab differs")
-                else:
-                    e = float((got[o] - ref[o]).abs().max())
-                    err[name] = max(err[name], e)
-                    check(e <= 1e-6, f"{name} {o} sel={sel}: max abs err {e}")
-        for o in outs:
-            check(torch.equal(got4[o], got3[o]), f"K4 {o} differs from K3")
+                check(torch.equal(got4[o], got3[o]),
+                      f"K4 {o} block {block} differs from K3")
     for name, e in err.items():
         results[name] = dict(max_abs_err=e)
-    log("K3, K4: every output equals the plain versions; K4 = K3 bit for bit")
+    log(f"K3, K4 at blocks {BLOCK} and {UNTIDY_BLOCK}: every output equals "
+        "the plain versions (K4 bit for bit); K4 = K3 bit for bit")
     # pass-1 counts against pass-2 hits, both mask modes, both layouts
     gpc = np.packbits(Gc.astype(np.uint8), axis=1)
     for max_hap in (ls._EXACT_MASK_MAX_HAP, 0):
@@ -862,7 +913,7 @@ def phase_scan_shapes(gp_host, pos, results):
     for name, res, site, plain in (
             ("ld_band_sweep_kernel", rd, lk.ld_band_sweep_blocks,
              lk.ld_band_sweep_blocks_plain),
-            ("ld_band_sweep_kernel<FORM_BITS>", rp,
+            (K4, rp,
              lk.ld_band_sweep_blocks_packed,
              lk.ld_band_sweep_blocks_packed_plain)):
         args3 = (res.g, res.g, res.c1, res.c1, res.ipq, res.ipq, hit_cij,
@@ -887,10 +938,99 @@ def phase_scan_shapes(gp_host, pos, results):
             f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm3:.3f} ms "
             f"({nb3} blocks), max abs err {results[name]['max_abs_err']:.3g}")
     check(torch.equal(cab["ld_band_sweep_kernel"],
-                      cab["ld_band_sweep_kernel<FORM_BITS>"]),
+                      cab[K4]),
           "K4 main-path cab differs from K3's")
     del rd, rp, cab, counts
     torch.cuda.empty_cache()
+
+
+def _recorded(module, name):
+    """Replace the launch site ``module.name`` by a wrapper that records
+    each call's arguments and CUDA events around it (on the current
+    stream); returns (the site, the list of (args, kwargs, start, end)).
+    The caller restores the site."""
+    import torch
+
+    site = getattr(module, name)
+    calls = []
+
+    def recording(*args, **kwargs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = site(*args, **kwargs)
+        end.record()
+        calls.append((args, kwargs, start, end))
+        return out
+
+    setattr(module, name, recording)
+    return site, calls
+
+
+def _int8_rows(gp, rows=65_536):
+    """The int8 rows of a packed resident matrix, unpacked in row chunks
+    (the yardstick's operand; the port never unpacks a packed resident)."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    g = torch.empty((gp.shape[0], gp.shape[1] * 8), dtype=torch.int8,
+                    device=gp.device)
+    for lo in range(0, gp.shape[0], rows):
+        g[lo:lo + rows] = lk.unpack_rows_device(gp[lo:lo + rows])
+    return g
+
+
+def time_scan_sweeps(site, calls, results):
+    """K4 over the launches the 1.1 M scan made (``calls``, recorded by
+    :func:`_recorded`): their device time inside the scan, then the same
+    launches replayed, their plain versions and torch._int_mm over the same
+    block products, against the bound of their blocks."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    torch.cuda.synchronize()
+    in_scan = sum(a.elapsed_time(b) for _, _, a, b in calls)
+    launches = [(args, kw) for args, kw, _, _ in calls]
+    g = launches[0][0][0]
+    check(all(args[0] is g and args[1] is g for args, _ in launches),
+          "the scan's sweeps read more than one resident matrix")
+    cij = torch.cat([args[6] for args, _ in launches])
+    nb = cij.shape[0]
+    ms = cuda_ms(lambda: [site(*a, **k) for a, k in launches], reps=3)
+    plain_ms = cuda_ms(lambda: [lk.ld_band_sweep_blocks_packed_plain(*a, **k)
+                                for a, k in launches], reps=1, warmup=0)
+    for args, kw in launches[:2]:
+        got, ref = site(*args, **kw), lk.ld_band_sweep_blocks_packed_plain(
+            *args, **kw)
+        for o in got:
+            check(torch.equal(got[o], ref[o]),
+                  f"K4 on the 1.1 M scan's blocks: {o} differs from plain")
+    g8 = _int8_rows(g)
+    hb = cij.to(torch.int64).cpu().numpy()
+
+    def int_mm_blocks():
+        for code in hb:
+            r, c = (code >> 16) * BLOCK, (code & 0xFFFF) * BLOCK
+            torch._int_mm(g8[r:r + BLOCK], g8[c:c + BLOCK].t())
+
+    mm = cuda_ms(int_mm_blocks, reps=1)
+    del g8
+    torch.cuda.empty_cache()
+    rows = len(set((hb >> 16).tolist()) | set((hb & 0xFFFF).tolist()))
+    b = bound(2 * nb * BLOCK * BLOCK * N_HAP,
+              rows * BLOCK * (g.shape[1] + 8) + 4 * nb
+              + 4 * nb * BLOCK * BLOCK)
+    results[K4].setdefault("extra", {}).update(
+        scan_1p1m_launches=len(launches), scan_1p1m_blocks=nb,
+        scan_1p1m_ms_in_scan=in_scan, scan_1p1m_ms=ms,
+        scan_1p1m_plain_ms=plain_ms, scan_1p1m_int_mm_ms=mm,
+        scan_1p1m_bound_ms=b[0], scan_1p1m_bound_by=b[1])
+    log(f"K4 {K4} over the 1.1 M scan's {len(launches)} launches ({nb} hit "
+        f"blocks): {in_scan:.3f} ms inside the scan, {ms:.3f} ms replayed, "
+        f"plain {plain_ms:.3f} ms, bound {b[0]:.3f} ms ({b[1]}), roofline "
+        f"share {b[0] / ms:.3f}, torch._int_mm {mm:.3f} ms ({nb} calls)")
 
 
 def _run_scan(data_dir, out_dir, extra=()):
@@ -923,11 +1063,14 @@ def _log_scan(tag, report, secs, launches):
           "pass 2 did not check every hit block against pass 1")
 
 
+# the count and sweep kernels of each resident layout (packed or not)
+LAYOUT_KERNELS = {False: ("ld_band_count_kernel", "ld_band_sweep_kernel"),
+                  True: ("ld_band_count_kernel<FORM_BITS>", K4)}
+
+
 def _check_layout_launches(tag, launches, packed):
     """The run launched the count and sweep kernels of its layout only."""
-    want = ("<FORM_BITS>" if packed else "")
-    for kind in ("ld_band_count_kernel", "ld_band_sweep_kernel"):
-        mine, other = kind + want, kind + ("" if packed else "<FORM_BITS>")
+    for mine, other in zip(LAYOUT_KERNELS[packed], LAYOUT_KERNELS[not packed]):
         check(launches[mine] > 0, f"scan ({tag}) never launched {mine}")
         check(launches[other] == 0,
               f"scan ({tag}) launched {other} {launches[other]} times")
@@ -1043,9 +1186,17 @@ def phase_scan(work, gp, pos, results):
     log(f"data: {gpf.shape[0]} variants x {N_HAP} haplotypes, runs of "
         f"{RUN_FULL}, made and written in {setup_s:.1f}s")
     check(LIMIT not in os.environ, f"{LIMIT} must be unset (default 4 GiB)")
-    report, secs, launches = _run_scan(data, os.path.join(work, "out_full"),
-                                       ("-w", "1000000"))
+    from ld_tools_tpu_torch.ops import ld_stream
+
+    site, calls = _recorded(ld_stream, "ld_band_sweep_blocks_packed")
+    try:
+        report, secs, launches = _run_scan(
+            data, os.path.join(work, "out_full"), ("-w", "1000000"))
+    finally:
+        ld_stream.ld_band_sweep_blocks_packed = site
     _log_scan("1.1M, window", report, secs, launches)
+    check(len(calls) == launches[K4], f"recorded {len(calls)} of "
+          f"{launches[K4]} K4 launches")
     st = report.stats
     check(st["resident_packed"] == 1.0,
           "auto must keep a 1.1M-variant chromosome packed")
@@ -1054,12 +1205,14 @@ def phase_scan(work, gp, pos, results):
           f"resident bytes {st['resident_bytes']}")
     _check_layout_launches("1.1M, window", launches, packed=True)
     for name in ("ld_band_count_kernel<FORM_BITS>",
-                 "ld_band_sweep_kernel<FORM_BITS>"):
+                 K4):
         results[name]["launches"] = launches[name]
         results[name]["path"] += (f", launches from the {N_VARIANTS_FULL}-"
                                   "variant -w 1000000 scan")
     _check_hits("1.1M, window", report.path, gpf, posf, RUN_FULL, 1_000_000,
                 seed=2)
+    time_scan_sweeps(site, calls, results)
+    del calls
     runs["full_size_window"] = (report, secs, launches)
     shutil.rmtree(data, ignore_errors=True)
     summary = {tag: dict(hits=r.n_hits, seconds=s, stats=r.stats,
@@ -1280,8 +1433,7 @@ def phase_sharded(work, stores, gp, pos, results):
         check(st["shards"] == SHARDS
               and st["blocks_checked"] == st["hit_blocks"] > 0,
               f"sharded scan ({layout}) stats {st}")
-        sweep = ("ld_band_sweep_kernel<FORM_BITS>" if layout == "packed"
-                 else "ld_band_sweep_kernel")
+        sweep = K4 if layout == "packed" else "ld_band_sweep_kernel"
         _only_launched(f"the sharded scan ({layout})", runs["sharded"][2],
                        {"ld_band_count_sharded", sweep})
         if layout == "int8":
@@ -1530,7 +1682,7 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False  # exact f32 plain counts
 
     kind, smi = phase_device()
-    build_s = phase_build()
+    build = phase_build()
     gp, pos = scan_dataset(N_VARIANTS, seed=4)
     log(f"data: {gp.shape[0]} variants x {N_HAP} haplotypes "
         f"({time.perf_counter() - t_start:.1f}s so far)")
@@ -1558,7 +1710,8 @@ def main():
               "path")
         kernels.append(dict(
             name=name, tag=tag, route="cuda",
-            source=COUNT_SOURCE if tag in ("K5", "K6", "K7") else SOURCE,
+            source=(COUNT_SOURCE if tag in ("K5", "K6", "K7") else
+                    BLOCK_SOURCE if tag in ("K1", "K4", "K8") else SOURCE),
             replaces=replaces, launches=r["launches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -1567,8 +1720,11 @@ def main():
             path=r["path"], shape=r["shape"], **r.get("extra", {}),
         ))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"build_s": build_s, "scan": scan, "sharded": sharded,
-                      "headline": headline}, default=float))
+    print(json.dumps({"build_s": build["seconds"], "scan": scan,
+                      "sharded": sharded, "headline": headline},
+                     default=float))
+    # the build's per-instance resources again, past the long phases
+    print(json.dumps({"ptxas": build["ptxas"], "sass": build["sass"]}))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

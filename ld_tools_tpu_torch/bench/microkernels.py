@@ -4,8 +4,9 @@ of scripts/bench_microkernels.py).
     python -m ld_tools_tpu_torch.bench.microkernels [--v 10240]
         [--block 512] [--only STAGE] [--device cuda|cpu]
 
-The same K1 skeleton (``ld_stage_blocks``: same sub-tiles, block list and
-int8 count core) at each rung, one epilogue stage more each time:
+K1's own kernel (``ld_stage_blocks``: ld_block_kernel<FORM_S8,
+STORE_TRIANGLE>, the same tiles, block list and int8 wgmma count core) at
+each rung, one epilogue stage more each time:
 
   counts : the int8 count + f32 store            (tensor cores + output)
   scale  : counts times one per-row vector       (+1 multiply per cell)

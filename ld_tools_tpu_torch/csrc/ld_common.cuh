@@ -10,6 +10,18 @@ namespace {
 
 enum Form : int { FORM_S8 = 0, FORM_BITS = 1, FORM_BF16 = 2, FORM_TF32 = 3 };
 
+// The triangle's epilogues, one a launch.  The r^2 sites use EPI_EXACT and
+// EPI_FAST; K8 (scripts/bench_microkernels.py's staged triangle kernel)
+// runs all four on int8 rows: the differences between their times split
+// the kernel's time into the count and store, one multiply, the
+// divide-free r^2 and the exact-order r^2.
+enum Epilogue : int {
+    EPI_EXACT = 0,   // r^2 (and D' when asked) in the exact order (ld_epilogue)
+    EPI_FAST = 1,    // the divide-free r^2 (fast_r2)
+    EPI_COUNTS = 2,  // K8's first stage: float(c_ab)
+    EPI_SCALE = 3,   // K8's second stage: c_ab * c1[row]
+};
+
 // _fast_r2 (ld_pallas.py:722): divide-free r^2 from f32 counts.
 __device__ __forceinline__ float fast_r2(float c, float c1a, float c1b,
                                          float ipqa, float ipqb,

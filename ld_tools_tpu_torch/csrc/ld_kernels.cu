@@ -1,5 +1,5 @@
-// Hand-written Hopper (sm_90a) kernels for the LD engine's count
-// products and their fused epilogues: the triangle and the band sweep.
+// Hand-written Hopper (sm_90a) kernels on the mma.sync core: the triangle
+// and the band sweep in the forms not yet moved onto the wgmma / TMA core.
 //
 // Both share one mma.sync count-tile core here and the epilogue and mask
 // functions of ld_common.cuh, so every pass of a scan derives its numbers
@@ -8,20 +8,19 @@
 // epilogue code on the same exact int32 counts:
 //
 //   ld_triangle_kernel    replaces ld_tools_tpu/ops/ld_pallas.py
-//                         _tri_kernel_dense (K1: int8; K1b: the bf16 /
-//                         f32 branch) and _tri_kernel_packed (K2):
-//                         lower-triangle blocks of all-pairs r^2 (and D').
-//                         Its two extra epilogues (enum Epilogue) replace
-//                         scripts/bench_microkernels.py's staged triangle
-//                         kernel (K8), which splits K1's time by stage.
+//                         _tri_kernel_dense's bf16 / f32 branch (K1b) and
+//                         _tri_kernel_packed (K2): lower-triangle blocks
+//                         of all-pairs r^2 (and D').
 //   ld_band_sweep_kernel  replaces ld_pallas.py _band_sweep_kernel, dense
-//                         (K3) and packed (K4) branches: per-block output
-//                         menu cab / r2 / dp / meas, over a LIST of blocks
-//                         so that one launch covers a whole batch of a
-//                         scan's hit blocks.
+//                         (K3): per-block output menu cab / r2 / dp /
+//                         meas, over a LIST of blocks so that one launch
+//                         covers a whole batch of a scan's hit blocks.
 //
-// The count pass (K5, K6: ld_band_count_kernel) is a wgmma / TMA design of
-// its own in ld_count_sm90.cu.
+// The int8 triangle (K1) with K8 and the packed sweep (K4) run on the
+// wgmma / TMA core (ld_block_sm90.cu), and the count pass (K5, K6) too
+// (ld_count_sm90.cu); ld_sm90_core.cuh is their shared core.  The entry
+// points here refuse those forms.  Moving K2 and K3 onto ld_block_sm90.cu,
+// then K1b onto bf16 / tf32 wgmma, is the next redesign.
 //
 // What bounds them on an H100: the tensor-core operations.  A block pair
 // of 640 x 640 variants over W = 5,120 haplotypes is 2 * 640^2 * 5120 =
@@ -31,13 +30,15 @@
 // memory: each thread block computes one 128 x 128 sub-tile of a logical
 // block with mma.sync over a double-buffered cp.async pipeline, and the
 // epilogue runs on the accumulators in registers, so only the requested
-// outputs are written.  Moving these two onto the count pass's wgmma core
-// is later work.
+// outputs are written.  What holds it at 0.17-0.29 of the peak: mma.sync
+// (SASS IMMA, the legacy tensor-core path) fed by per-thread LDS.32
+// fragment loads, a 2-stage ring with __syncthreads in the main loop, and
+// one non-persistent thread block per 128 x 128 sub-tile (PERF.md).
 //
 // Operand forms (the count core is the only code that differs):
-//   FORM_S8    int8 {0,1} rows, mma m16n8k32 s8 -> s32 (K1, K3).
+//   FORM_S8    int8 {0,1} rows, mma m16n8k32 s8 -> s32 (K3).
 //   FORM_BITS  the store's bitpacked uint8 rows, 8 haplotypes per byte
-//              (K2, K4).  cp.async copies the packed bytes, 8x fewer
+//              (K2).  cp.async copies the packed bytes, 8x fewer
 //              per K step, and the bit-planes are unpacked in registers:
 //              for a fragment word w of four packed bytes, (w >> s) &
 //              0x01010101 is the int8x4 fragment of plane s, and 8 s8
@@ -54,9 +55,9 @@
 //              form and no extra shared memory or synchronisation is
 //              needed.  A b1 `mma ... .and.popc` is not used: the card
 //              has no published binary tensor-core rate.  On an H100 at
-//              700 W each bit-plane kernel takes 0.75-0.82x the time of
-//              its int8 twin at the scan's and the sweep's shapes
-//              (chip_smoke.py; PERF.md).
+//              700 W each bit-plane kernel took 0.75-0.82x the time of
+//              its int8 twin on this core at the scan's and the sweep's
+//              shapes (chip_smoke.py; PERF.md).
 //   FORM_BF16  int8 rows converted to bf16 in registers, mma m16n8k16
 //              bf16 -> f32 (K1b, mxu_dtype "bfloat16").
 //   FORM_TF32  int8 rows converted to f32 (TF32 operands), mma m16n8k8
@@ -471,22 +472,12 @@ ld_band_sweep_kernel(const int8_t* __restrict__ ga,
             }
 }
 
-// ---- K1 / K1b / K2 / K8: lower-triangle all-pairs matrix -----------------
+// ---- K1b / K2: lower-triangle all-pairs matrix ----------------------------
 //
-// The epilogue is a runtime argument, one value for the whole launch.
-// The r^2 sites use EPI_EXACT and EPI_FAST.  K8 (the staged kernel of
-// scripts/bench_microkernels.py, :76) runs all four on int8 rows: the
-// differences between their times split this kernel's own time into the
-// count and store, one multiply, the divide-free r^2 and the exact-order
-// r^2.  Every epilogue writes whole listed (bi, bj) blocks, the cells
-// above the diagonal of a diagonal block too, as the TPU kernels do.
-
-enum Epilogue : int {
-    EPI_EXACT = 0,   // r^2 (and D' when dp) in the exact order (ld_epilogue)
-    EPI_FAST = 1,    // the divide-free r^2 (fast_r2)
-    EPI_COUNTS = 2,  // K8's first stage: float(c_ab)
-    EPI_SCALE = 3,   // K8's second stage: c_ab * c1[row]
-};
+// The epilogue (enum Epilogue, ld_common.cuh) is a runtime argument, one
+// value for the whole launch.  Every epilogue writes whole listed (bi, bj)
+// blocks, the cells above the diagonal of a diagonal block too, as the TPU
+// kernels do.
 
 template <int FORM>
 __global__ void __launch_bounds__(NTHREADS)
@@ -559,8 +550,9 @@ int ldk_band_sweep(const void* ga, const void* gb, const void* c1a,
                    int W, int block_m, int block_n, float n_f, float inv_n,
                    int sel, int form, void* cab, void* r2, void* dp,
                    void* meas, void* stream) {
+    // K4 (FORM_BITS) runs on ld_block_sm90.cu's wgmma core
     auto kernel = pick(form, ld_band_sweep_kernel<FORM_S8>,
-                       ld_band_sweep_kernel<FORM_BITS>);
+                       decltype(&ld_band_sweep_kernel<FORM_S8>){nullptr});
     if (!kernel) return static_cast<int>(cudaErrorInvalidValue);
     const int sm_ = n_sub(block_m), sn_ = n_sub(block_n);
     kernel<<<n_blocks * sm_ * sn_, NTHREADS, 0,
@@ -579,7 +571,8 @@ int ldk_triangle(const void* g, const void* c1, const void* ipq,
                  const void* cij, int n_blocks, int n_rows, int W,
                  int block_m, int block_n, float n_f, float inv_n, int epi,
                  int form, void* r2, void* dp, void* stream) {
-    auto kernel = pick(form, ld_triangle_kernel<FORM_S8>,
+    // K1 and K8 (FORM_S8) run on ld_block_sm90.cu's wgmma core
+    auto kernel = pick(form, decltype(&ld_triangle_kernel<FORM_BITS>){nullptr},
                        ld_triangle_kernel<FORM_BITS>,
                        ld_triangle_kernel<FORM_BF16>,
                        ld_triangle_kernel<FORM_TF32>);

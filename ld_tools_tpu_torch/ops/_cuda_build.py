@@ -24,8 +24,10 @@ import time
 from ld_tools_tpu_torch.utils.paths import BUILD_DIR, PKG_ROOT
 
 CSRC = os.path.join(PKG_ROOT, "csrc")
-# ld_kernels.cu: the mma.sync triangle and band sweep (K1, K1b, K2, K3,
-# K4, K8); ld_count_sm90.cu: the wgmma / TMA count pass (K5, K6)
+# ld_kernels.cu: the mma.sync triangle and band sweep (K1b, K2, K3);
+# ld_block_sm90.cu: the wgmma / TMA triangle (K1, K8) and packed sweep
+# (K4); ld_count_sm90.cu: the wgmma / TMA count pass (K5, K6); the last
+# two share ld_sm90_core.cuh
 SOURCES = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cu"))))
 HEADERS = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
 LIB = os.path.join(BUILD_DIR, "libld_kernels.so")
@@ -38,7 +40,7 @@ NVCC_FLAGS = (
     "-fmad=false",
     "-std=c++17", "-Xcompiler", "-fPIC",
 )
-# cuTensorMapEncodeTiled (the count pass's TMA descriptor) comes through
+# cuTensorMapEncodeTiled (the wgmma kernels' TMA descriptors) comes through
 # cudaGetDriverEntryPoint*, so the library links the runtime only
 LINK_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-shared")
 
@@ -59,6 +61,13 @@ _SIGNATURES = {
     ),
     "ldk_triangle": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P,
+    ),
+    "ldk_block_triangle": (
+        _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P,
+    ),
+    "ldk_block_sweep": (
+        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
+        _I, _I, _I, _P, _P, _P, _P, _P,
     ),
 }
 

@@ -1,11 +1,14 @@
 """Blocked all-pairs LD kernels: the counterpart of ld_tools_tpu/ops/ld_pallas.py.
 
-Each wrapper launches its hand-written CUDA kernel (csrc/ld_kernels.cu;
-the count pass csrc/ld_count_sm90.cu) for tensors on the card and runs
-its plain PyTorch version for tensors on the CPU; any other device
-raises.  Nothing falls back: a CUDA tensor either goes through the
-kernel or the call raises.  Every launching wrapper keeps an integer
-``launches`` count, bumped only where it launches its kernel.
+Each wrapper launches its hand-written CUDA kernel for tensors on the
+card and runs its plain PyTorch version for tensors on the CPU; any other
+device raises.  The kernels: csrc/ld_block_sm90.cu (the int8 triangle K1
+with K8 and the packed sweep K4) and csrc/ld_count_sm90.cu (the count
+pass K5, K6) on the wgmma / TMA core of csrc/ld_sm90_core.cuh, and
+csrc/ld_kernels.cu (K1b, K2, K3) on the mma.sync core.  Nothing falls
+back: a CUDA tensor either goes through the kernel or the call raises.
+Every launching wrapper keeps an integer ``launches`` count, bumped only
+where it launches its kernel.
 
 Map to ld_pallas.py (by line):
 
@@ -36,11 +39,13 @@ covers a whole triangle, a whole batch of a scan's hit blocks or a whole
 count pass, and each has a ``*_plain`` twin:
 
   ld_triangle_blocks          K1   _tri_kernel_dense, int8 (:259)
+                                   (ld_block_kernel<FORM_S8, triangle>)
   ld_triangle_blocks_bf16     K1b  _tri_kernel_dense, bf16 dot (:292)
   ld_triangle_blocks_tf32     K1b  _tri_kernel_dense, f32 dot (:292)
   ld_triangle_blocks_packed   K2   _tri_kernel_packed (:303)
   ld_band_sweep_blocks        K3   _band_sweep_kernel, dense (:747)
   ld_band_sweep_blocks_packed K4   _band_sweep_kernel, packed (:693)
+                                   (ld_block_kernel<FORM_BITS, sweep>)
   ld_band_count               K5   _band_count_kernel, dense (:909)
   ld_band_count_packed        K6   _band_count_kernel, packed (:949)
   ld_band_count_sharded       K7   ld_band_count_sharded (:1206): K5 or
@@ -158,18 +163,21 @@ def _check_matrix(g: torch.Tensor, name: str, packed: bool = False) -> None:
 
 
 def _check_grid(n_blocks: int, block_m: int, block_n: int) -> None:
-    """The triangle and sweep kernels launch one thread block per 128 x
-    128 sub-tile: the grid must fit."""
+    """The mma.sync triangle and sweep kernels launch one thread block per
+    128 x 128 sub-tile: the grid must fit."""
     n_sub = -(-block_m // 128) * -(-block_n // 128)
     if n_blocks * n_sub >= 2**31:
         raise ValueError(f"{n_blocks} blocks exceed one launch's grid")
 
 
 # The count kernel's tile (csrc/ld_count_sm90.cu CT_M x CT_N) and the
-# largest block side it takes (its row indices bi * block, bi < 2^15, stay
-# in int32; the scan's count_block never exceeds it)
+# largest block side the wgmma kernels take (their row indices bi * block,
+# bi < 2^15, stay in int32; the scan's count_block never exceeds it)
 COUNT_TILE = (128, 320)
 MAX_COUNT_BLOCK = 2048
+# The rows of ld_block_kernel's tile (csrc/ld_block_sm90.cu; its columns:
+# block_tile_n)
+BLOCK_TILE_M = 128
 
 
 def count_tiles(n_blocks: int, block_m: int, block_n: int) -> int:
@@ -179,23 +187,58 @@ def count_tiles(n_blocks: int, block_m: int, block_n: int) -> int:
     return n_blocks * -(-block_m // tm) * -(-block_n // tn)
 
 
+def block_tile_n(block_n: int) -> int:
+    """The columns of ld_block_kernel's tile for blocks of ``block_n``
+    columns: 320 where 320 divides the block, else 256 (csrc/
+    ld_block_sm90.cu block_tile_n, the rule this mirrors)."""
+    return 320 if block_n % 320 == 0 else 256
+
+
+def block_tiles(n_blocks: int, block_m: int, block_n: int) -> int:
+    """The length of ld_block_kernel's linear tile walk: every block split
+    into ceil(block_m / 128) x ceil(block_n / block_tile_n(block_n))
+    tiles."""
+    tn = block_tile_n(block_n)
+    return n_blocks * -(-block_m // BLOCK_TILE_M) * -(-block_n // tn)
+
+
 def _sm_count(dev: torch.device) -> int:
     return torch.cuda.get_device_properties(dev).multi_processor_count
 
 
-def _count_grid(n_blocks: int, block_m: int, block_n: int,
-                dev: torch.device) -> int:
-    """The count kernel's persistent grid, min(SMs, tiles); raises on a
+def _persistent_grid(kernel: str, tiles: int, block_m: int, block_n: int,
+                     dev: torch.device) -> int:
+    """A wgmma kernel's persistent grid, min(SMs, tiles); raises on a
     block side it does not take or a walk past int32."""
     for name, side in (("block_m", block_m), ("block_n", block_n)):
         if not 0 < side <= MAX_COUNT_BLOCK:
-            raise ValueError(f"the count kernel takes {name} in (0, "
+            raise ValueError(f"the {kernel} kernel takes {name} in (0, "
                              f"{MAX_COUNT_BLOCK}], got {side}")
-    tiles = count_tiles(n_blocks, block_m, block_n)
     if tiles >= 2**31:
-        raise ValueError(f"{n_blocks} blocks exceed the count kernel's "
+        raise ValueError(f"the block list exceeds the {kernel} kernel's "
                          "int32 tile walk")
     return min(_sm_count(dev), tiles) if tiles else 0
+
+
+def _count_grid(n_blocks: int, block_m: int, block_n: int,
+                dev: torch.device) -> int:
+    """The count kernel's persistent grid (:func:`_persistent_grid`)."""
+    return _persistent_grid("count", count_tiles(n_blocks, block_m, block_n),
+                            block_m, block_n, dev)
+
+
+def _block_grid(n_blocks: int, block_m: int, block_n: int,
+                dev: torch.device) -> int:
+    """ld_block_kernel's persistent grid (:func:`_persistent_grid`)."""
+    return _persistent_grid("block", block_tiles(n_blocks, block_m, block_n),
+                            block_m, block_n, dev)
+
+
+def _check_rows(g: torch.Tensor, name: str) -> None:
+    """The wgmma kernels' TMA maps need rows and at least 16 bytes a row."""
+    if g.shape[0] == 0 or g.shape[1] == 0:
+        raise ValueError(f"{name} must hold rows of at least 16 bytes for "
+                         f"the wgmma kernels, got {tuple(g.shape)}")
 
 
 def _vec(t: torch.Tensor, n: int, dtype, name: str) -> torch.Tensor:
@@ -459,8 +502,8 @@ def _chunks(n: int):
 # tensor it returns its ``*_plain`` twin, which also runs on CUDA tensors
 # when called by name (chip_smoke.py holds each kernel against it there).
 
-# ld_triangle_kernel's epilogues, in the order of enum Epilogue in
-# csrc/ld_kernels.cu: the r^2 sites take the first two, K8 all four
+# the triangle kernels' epilogues, in the order of enum Epilogue in
+# csrc/ld_common.cuh: the r^2 sites take the first two, K8 all four
 EPILOGUES = ("exact", "fast", "counts", "scale")
 # K8's stages, in the order the microkernel bench prints them
 STAGES = ("counts", "scale", "fast", "exact")
@@ -521,8 +564,9 @@ def _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
 def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
                      block_m, block_n, epilogue, want_dprime, out,
                      epilogues=("fast", "exact")):
-    """Launch ld_triangle_kernel<form> over the blocks ``cij``; bumps
-    ``site.launches``."""
+    """Launch the triangle kernel of ``form`` over the blocks ``cij``
+    (FORM_S8: ld_block_kernel on the wgmma core; the other forms:
+    ld_triangle_kernel<form>); bumps ``site.launches``."""
     c1, ipq, cij = _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n,
                                   epilogue, want_dprime,
                                   form == _cuda_build.FORM_BITS, epilogues)
@@ -539,16 +583,23 @@ def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
                                  "f32 on g_pad's device")
         dp = dp if want_dprime else None
     if cij.shape[0]:
-        _check_grid(cij.shape[0], block_m, block_n)
         n_f, inv_n = _f32_inv(n_haplotypes)
-        err = _launch(
-            "ldk_triangle", g_pad.device, g_pad.data_ptr(), c1.data_ptr(),
-            ipq.data_ptr(), cij.data_ptr(), cij.shape[0], v, w, block_m,
-            block_n, n_f, inv_n, EPILOGUES.index(epilogue), form,
-            r2.data_ptr(), dp.data_ptr() if dp is not None else None,
-        )
-        _cuda_build.check(err, f"ld_triangle_kernel (form {form}, "
-                               f"epilogue {epilogue})")
+        args = (g_pad.data_ptr(), c1.data_ptr(), ipq.data_ptr(),
+                cij.data_ptr(), cij.shape[0], v, w, block_m, block_n, n_f,
+                inv_n, EPILOGUES.index(epilogue), form)
+        outs = (r2.data_ptr(), dp.data_ptr() if dp is not None else None)
+        if form == _cuda_build.FORM_S8:
+            # K1 / K8: the wgmma kernel, one persistent thread block per SM
+            _check_rows(g_pad, "g_pad")
+            grid = _block_grid(cij.shape[0], block_m, block_n, g_pad.device)
+            err = _launch("ldk_block_triangle", g_pad.device, *args, grid,
+                          *outs)
+            kernel = "ld_block_kernel<FORM_S8, triangle>"
+        else:
+            _check_grid(cij.shape[0], block_m, block_n)
+            err = _launch("ldk_triangle", g_pad.device, *args, *outs)
+            kernel = f"ld_triangle_kernel (form {form})"
+        _cuda_build.check(err, f"{kernel}, epilogue {epilogue}")
         site.launches += 1
     return r2, dp
 
@@ -565,7 +616,8 @@ def ld_triangle_blocks_plain(g_pad, c1, ipq, cij, n_haplotypes, *,
 def ld_triangle_blocks(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
                        block_n, epilogue="exact", want_dprime=True,
                        out=None):
-    """Launch site of ld_triangle_kernel (K1): r^2 (and D') of the listed
+    """Launch site of K1, ld_block_kernel<FORM_S8, STORE_TRIANGLE>
+    (csrc/ld_block_sm90.cu, wgmma): r^2 (and D') of the listed
     blocks of the (V, V) matrix, 0 elsewhere.  ``cij[k] = bi * 2^16 +
     bj``; ``g_pad`` is int8 {0,1} (V, W) with W a multiple of 16, c1/ipq
     its f32 alt counts and 1/(p*q).  ``out=(r2, dp or None)`` reuses
@@ -694,10 +746,10 @@ def ld_stage_blocks_plain(g_pad, c1, ipq, cij, n_haplotypes, *, block,
 def ld_stage_blocks(g_pad, c1, ipq, cij, n_haplotypes, *, block, stage,
                     out=None):
     """Launch site of K8 (the staged triangle kernel of
-    scripts/bench_microkernels.py): ld_triangle_kernel<FORM_S8>, K1's own
-    kernel, at one epilogue ``stage`` over the listed (bi, bj) blocks of a
-    (V, V) f32 matrix, whole blocks (the cells above the diagonal of a
-    diagonal block too):
+    scripts/bench_microkernels.py): ld_block_kernel<FORM_S8,
+    STORE_TRIANGLE>, K1's own kernel, at one epilogue ``stage`` over the
+    listed (bi, bj) blocks of a (V, V) f32 matrix, whole blocks (the cells
+    above the diagonal of a diagonal block too):
 
       counts  float(c_ab)
       scale   c_ab * c1[row]
@@ -767,8 +819,10 @@ def _band_sweep_plain(g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols,
 def _band_sweep_launch(site, form, g_rows, g_cols, c1_rows, c1_cols,
                        ipq_rows, ipq_cols, cij, n_haplotypes, *, outs, sel,
                        block_m, block_n):
-    """Launch ld_band_sweep_kernel<form> over the blocks ``cij``; bumps
-    ``site.launches``."""
+    """Launch the band sweep kernel of ``form`` over the blocks ``cij``
+    (FORM_BITS: ld_block_kernel on the wgmma core; FORM_S8:
+    ld_band_sweep_kernel); bumps ``site.launches``.  The outputs are
+    uninitialised: the kernels write every cell of every listed block."""
     c1_rows, c1_cols, ipq_rows, ipq_cols, cij = _band_prep(
         g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij, outs,
         sel, form == _cuda_build.FORM_BITS)
@@ -778,18 +832,27 @@ def _band_sweep_launch(site, form, g_rows, g_cols, c1_rows, c1_cols,
            for o in outs}
     if nb == 0:
         return out
-    _check_grid(nb, block_m, block_n)
     n_f, inv_n = _f32_inv(n_haplotypes)
     ptr = {o: (out[o].data_ptr() if o in out else None)
            for o in BAND_OUT_DTYPES}
-    err = _launch(
-        "ldk_band_sweep", g_rows.device, g_rows.data_ptr(),
-        g_cols.data_ptr(), c1_rows.data_ptr(), c1_cols.data_ptr(),
-        ipq_rows.data_ptr(), ipq_cols.data_ptr(), cij.data_ptr(), nb,
-        g_rows.shape[0], g_cols.shape[0], g_rows.shape[1], block_m, block_n,
-        n_f, inv_n, sel, form, ptr["cab"], ptr["r2"], ptr["dp"], ptr["meas"],
-    )
-    _cuda_build.check(err, f"ld_band_sweep_kernel (form {form})")
+    args = (g_rows.data_ptr(), g_cols.data_ptr(), c1_rows.data_ptr(),
+            c1_cols.data_ptr(), ipq_rows.data_ptr(), ipq_cols.data_ptr(),
+            cij.data_ptr(), nb, g_rows.shape[0], g_cols.shape[0],
+            g_rows.shape[1], block_m, block_n, n_f, inv_n, sel, form)
+    outs = (ptr["cab"], ptr["r2"], ptr["dp"], ptr["meas"])
+    if form == _cuda_build.FORM_BITS:
+        # K4: the wgmma kernel, one persistent thread block per SM; it
+        # writes every cell of every block, past the matrix too
+        _check_rows(g_rows, "g_rows")
+        _check_rows(g_cols, "g_cols")
+        grid = _block_grid(nb, block_m, block_n, g_rows.device)
+        err = _launch("ldk_block_sweep", g_rows.device, *args, grid, *outs)
+        kernel = "ld_block_kernel<FORM_BITS, sweep>"
+    else:
+        _check_grid(nb, block_m, block_n)
+        err = _launch("ldk_band_sweep", g_rows.device, *args, *outs)
+        kernel = f"ld_band_sweep_kernel (form {form})"
+    _cuda_build.check(err, kernel)
     site.launches += 1
     return out
 
@@ -849,9 +912,9 @@ def ld_band_sweep_blocks_packed(
 ):
     """:func:`ld_band_sweep_blocks` over the store's bitpacked uint8 rows
     (W bytes = 8 W haplotypes, W a multiple of 16): the launch site of
-    ld_band_sweep_kernel<FORM_BITS> (K4), the packed branch of
-    _band_sweep_kernel.  Outputs equal K3's on the unpacked rows bit for
-    bit."""
+    ld_block_kernel<FORM_BITS, STORE_SWEEP> (K4, csrc/ld_block_sm90.cu,
+    wgmma), the packed branch of _band_sweep_kernel.  Outputs equal K3's
+    on the unpacked rows bit for bit."""
     kw = dict(outs=outs, sel=sel, block_m=block_m, block_n=block_n)
     args = (gp_rows, gp_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij)
     if not _on_card(*args):

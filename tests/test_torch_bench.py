@@ -79,7 +79,7 @@ def test_microkernels_only_filters_the_stages(capsys):
     assert len(capsys.readouterr().out.strip().splitlines()) == 1
 
 
-def test_kernels_variants_route_to_the_ported_sites(capsys):
+def test_kernels_variants_route_to_the_ported_sites(capsys, monkeypatch):
     assert [v[0] for v in kernels.VARIANTS] == [
         "dense/512/fast/r2only", "dense/1024/fast/r2only",
         "dense/512/exact/r2only", "dense/512/exact/r2+dp",
@@ -88,10 +88,23 @@ def test_kernels_variants_route_to_the_ported_sites(capsys):
     assert kernels.SITES == {"dense": tk.ld_triangle_blocks,
                              "packed": tk.ld_triangle_blocks_packed,
                              "bf16": tk.ld_triangle_blocks_bf16}
+    # a fixed time in place of the CPU clock's (a differenced host time can
+    # come out NaN under load; sweep_seconds has its own fake-timer tests):
+    # one sweep still runs through the variant's site, on the plain version
+    swept = []
+
+    def fixed_time(make_many, datasets):
+        swept.append(float(make_many(1)(datasets, 0.0)))
+        return 2e-3, {}
+
+    monkeypatch.setattr(kernels, "sweep_seconds", fixed_time)
     got = kernels.run(v=150, only="512/exact/r2+dp", device="cpu")
-    assert list(got) == ["dense/512/exact/r2+dp"] and got[
-        "dense/512/exact/r2+dp"] > 0
-    assert "dense/512/exact/r2+dp" in capsys.readouterr().out
+    assert got == {"dense/512/exact/r2+dp": 2.0}
+    assert len(swept) == 1 and np.isfinite(swept[0])
+    assert not any(s.launches for s in tk.LAUNCH_SITES)
+    (row,) = capsys.readouterr().out.strip().splitlines()
+    assert row.split()[:2] == ["dense/512/exact/r2+dp", "2.00"]
+    assert "(cpu: plain version, no device peak)" in row
 
 
 def test_suite_config5_writes_its_artifact(tmp_path, monkeypatch):

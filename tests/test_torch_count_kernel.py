@@ -125,3 +125,112 @@ def test_count_tile_walk_covers_every_strict_lower_cell_once(block, n_rows):
     want = ((cols[:, None, :] < rows[:, :, None])
             & (rows < n_rows)[:, :, None])
     np.testing.assert_array_equal(hits, want.astype(np.int32))
+
+
+def _block_source_rule() -> tuple:
+    """(CT_M, divisor, wide, narrow) as the C sources state them: the tile
+    rows (csrc/ld_sm90_core.cuh) and block_tile_n's rule, TN = wide where
+    divisor divides the block side, else narrow (csrc/ld_block_sm90.cu)."""
+    with open(os.path.join(_cuda_build.CSRC, "ld_sm90_core.cuh")) as fh:
+        ct_m = int(re.search(r"constexpr int CT_M = (\d+);", fh.read())[1])
+    with open(os.path.join(_cuda_build.CSRC, "ld_block_sm90.cu")) as fh:
+        rule = re.search(r"block_tile_n\(int block_n\) \{\s*return block_n "
+                         r"% (\d+) == 0 \? (\d+) : (\d+);", fh.read())
+    return (ct_m,) + tuple(int(x) for x in rule.groups())
+
+
+def _block_tile_walk(cij, n_rows: int, block_m: int, block_n: int,
+                     store: str) -> dict:
+    """The live tiles of ld_block_kernel's walk, decoded as its
+    ``Walk<WALK_TRIANGLE | WALK_SWEEP, TN>::at`` decodes them, with the
+    tile from the C sources' rule: {name: int64 array} with "t", "k",
+    "row0"/"col0" (the tile's first matrix row/column), "lr0"/"lc0" (its
+    offset inside the block) and "rows"/"cols" (the cells it writes).  The
+    triangle writes the tile's cells inside the block and the matrix and
+    computes a tile only when it holds one; the sweep writes every cell of
+    the block, past the matrix too."""
+    tm, div, wide, narrow = _block_source_rule()
+    tn = wide if block_n % div == 0 else narrow
+    n_tm, n_tn = -(-block_m // tm), -(-block_n // tn)
+    cij = np.asarray(cij, dtype=np.int64).reshape(-1)
+    t = np.arange(cij.size * n_tm * n_tn, dtype=np.int64)
+    k, s = np.divmod(t, n_tm * n_tn)
+    tr, tc = np.divmod(s, n_tn)
+    lr0, lc0 = tr * tm, tc * tn
+    row0 = (cij[k] >> 16) * block_m + lr0
+    col0 = (cij[k] & 0xFFFF) * block_n + lc0
+    rows = np.minimum(tm, block_m - lr0)
+    cols = np.minimum(tn, block_n - lc0)
+    if store == "triangle":
+        rows = np.minimum(rows, n_rows - row0)
+        cols = np.minimum(cols, n_rows - col0)
+        live = (rows > 0) & (cols > 0)
+    else:
+        live = np.ones(t.size, dtype=bool)
+    return {name: a[live] for name, a in (
+        ("t", t), ("k", k), ("row0", row0), ("col0", col0), ("lr0", lr0),
+        ("lc0", lc0), ("rows", rows), ("cols", cols))}
+
+
+def test_block_tile_rule_is_the_c_sources():
+    """ops/ld_kernels.block_tile_n and block_tiles (the grid the wrappers
+    pass) are the C sources' tile width and walk length at every block
+    side the kernel takes; 320 wide where it divides the block, else 256."""
+    tm, div, wide, narrow = _block_source_rule()
+    assert (tm, div, wide, narrow) == (lk.BLOCK_TILE_M, 320, 320, 256)
+    for side in range(1, lk.MAX_COUNT_BLOCK + 1):
+        tn = wide if side % div == 0 else narrow
+        assert lk.block_tile_n(side) == tn
+        assert lk.block_tiles(3, side, side) == 3 * -(-side // tm) * -(
+            -side // tn)
+    assert [lk.block_tile_n(b) for b in (512, 640, 1000, 1024)] == [
+        256, 320, 256, 256]
+
+
+@pytest.mark.parametrize("store", ["triangle", "sweep"])
+@pytest.mark.parametrize("block,n_rows", [
+    (16, 16 * 9 + 5),
+    (200, 200 * 4 + 37),
+    (512, 512 * 3 + 100),
+    (640, 640 * 3 + 1),
+    (1000, 1000 * 2 + 999),
+    (1024, 1024 * 2 + 1),
+    (2048, 2048 + 300),
+])
+def test_block_tile_walk_writes_every_cell_once(block, n_rows, store):
+    """At block sides the tile does and does not divide, with a ragged
+    matrix edge, at the tile width the wrapper picks: the triangle
+    (K1 / K8) writes every cell of every listed block that lies inside the
+    matrix exactly once and none outside it, and computes no tile without
+    such a cell; the sweep (K4) writes every cell of every listed block
+    exactly once, past the matrix edge too.  The walk is as long as the
+    wrapper's block_tiles."""
+    nb = -(-n_rows // block)
+    rng = np.random.default_rng(block)
+    if store == "triangle":
+        bi, bj = np.tril_indices(nb)
+    else:  # a scan's hit blocks: any pairs, in any order
+        bi, bj = np.divmod(rng.permutation(nb * nb), nb)
+    keep = rng.random(bi.size) < 0.8
+    keep[bi == nb - 1] = True  # the ragged block row always
+    bi, bj = bi[keep], bj[keep]
+    cij = lk.pack_block_coords(bi, bj)
+    walk = _block_tile_walk(cij, n_rows, block, block, store)
+    n_tiles = lk.block_tiles(len(cij), block, block)
+    assert walk["t"].size <= n_tiles and np.all(np.diff(walk["t"]) > 0)
+    if store == "sweep":
+        assert walk["t"].size == n_tiles
+    hits = np.zeros((len(cij), block, block), dtype=np.int8)
+    for k, row0, col0, lr0, lc0, rows, cols in zip(
+            walk["k"], walk["row0"], walk["col0"], walk["lr0"], walk["lc0"],
+            walk["rows"], walk["cols"]):
+        assert rows > 0 and cols > 0, "a live tile with nothing to write"
+        assert (row0 - bi[k] * block, col0 - bj[k] * block) == (lr0, lc0)
+        hits[k, lr0:lr0 + rows, lc0:lc0 + cols] += 1
+    if store == "triangle":
+        rows = bi[:, None] * block + np.arange(block)[None, :]
+        cols = bj[:, None] * block + np.arange(block)[None, :]
+        want = (rows < n_rows)[:, :, None] & (cols < n_rows)[:, None, :]
+    else:
+        want = np.ones_like(hits, dtype=bool)
+    np.testing.assert_array_equal(hits, want.astype(np.int8))

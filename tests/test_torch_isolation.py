@@ -219,7 +219,8 @@ class _FakeCudaDevice:
 
 
 @pytest.mark.parametrize("entry", ["ldk_band_count", "ldk_band_sweep",
-                                   "ldk_triangle"])
+                                   "ldk_triangle", "ldk_block_triangle",
+                                   "ldk_block_sweep"])
 def test_launches_make_the_tensor_device_current(entry, monkeypatch):
     """Every launch selects its tensors' card before the library call and
     passes that card's stream: with a (faked) second card, cuda:1 is
@@ -261,11 +262,20 @@ def test_launches_make_the_tensor_device_current(entry, monkeypatch):
                          vec.to(torch.int32), cij, 16, 0, 0.5, sel=0,
                          exact_mask=True, use_dist=False, block_m=16,
                          block_n=16)
-    elif entry == "ldk_band_sweep":
+    elif entry == "ldk_band_sweep":  # K3: the dense form
         lk._band_sweep_launch(lk.ld_band_sweep_blocks, _cuda_build.FORM_S8,
                               g, g, vec, vec, vec, vec, cij, 16,
                               outs=("cab",), sel=0, block_m=16, block_n=16)
-    else:
+    elif entry == "ldk_block_sweep":  # K4: the packed form
+        lk._band_sweep_launch(lk.ld_band_sweep_blocks_packed,
+                              _cuda_build.FORM_BITS, g.to(torch.uint8),
+                              g.to(torch.uint8), vec, vec, vec, vec, cij, 16,
+                              outs=("cab",), sel=0, block_m=16, block_n=16)
+    elif entry == "ldk_triangle":  # K1b: a form left on the mma.sync core
+        lk._triangle_launch(lk.ld_triangle_blocks_bf16, _cuda_build.FORM_BF16,
+                            g, vec, vec, cij, 16, block_m=16, block_n=16,
+                            epilogue="fast", want_dprime=False, out=None)
+    else:  # K1: the int8 form
         lk._triangle_launch(lk.ld_triangle_blocks, _cuda_build.FORM_S8, g,
                             vec, vec, cij, 16, block_m=16, block_n=16,
                             epilogue="fast", want_dprime=False, out=None)
@@ -334,6 +344,50 @@ def test_count_launch_passes_the_persistent_grid(n_blocks, block, grid,
     assert grid_a == grid == min(132, lk.count_tiles(n_blocks, block, block))
     assert args[20] == out.data_ptr() and args[21] == 1000
     assert lk.ld_band_count_packed.launches == 1
+    lk.reset_launches()
+
+
+@pytest.mark.parametrize("n_blocks,block,grid", [
+    (1, 16, 1),         # one 128 x 256 tile
+    (136, 640, 132),    # the headline: 10 tiles of 128 x 320 a block
+    (3, 512, 24),       # 4 x 2 tiles of 128 x 256 a block
+    (3, 1000, 96),      # 8 x 4 tiles of 128 x 256 a block
+])
+@pytest.mark.parametrize("entry", ["ldk_block_triangle", "ldk_block_sweep"])
+def test_block_launch_passes_the_persistent_grid(entry, n_blocks, block, grid,
+                                                 monkeypatch):
+    """ld_block_kernel (K1 / K8, K4) walks blocks x 128 x block_tile_n
+    tiles in min(SMs, tiles) persistent thread blocks: the launch hands
+    the library every argument of its prototype, the grid among them,
+    and bumps the site's count once."""
+    from ld_tools_tpu_torch.ops import _cuda_build
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    calls = _fake_count_lib(monkeypatch)
+    lk.reset_launches()
+    vec = torch.zeros((40,), dtype=torch.float32)
+    cij = torch.zeros((n_blocks,), dtype=torch.int32)
+    if entry == "ldk_block_triangle":
+        g = torch.zeros((40, 32), dtype=torch.int8)
+        site, form = lk.ld_triangle_blocks, _cuda_build.FORM_S8
+        lk._triangle_launch(site, form, g, vec, vec, cij, 16,
+                            block_m=block, block_n=block, epilogue="exact",
+                            want_dprime=True, out=None)
+        at_grid, at_form = 13, 12
+    else:
+        g = torch.zeros((40, 32), dtype=torch.uint8)
+        site, form = lk.ld_band_sweep_blocks_packed, _cuda_build.FORM_BITS
+        lk._band_sweep_launch(site, form, g, g, vec, vec,
+                              vec, vec, cij, 16, outs=("cab", "meas"), sel=1,
+                              block_m=block, block_n=block)
+        at_grid, at_form = 17, 16
+    ((name, args),) = calls
+    assert name == entry
+    assert len(args) == len(_cuda_build._SIGNATURES[name])
+    assert args[at_form] == form
+    assert args[at_grid] == grid == min(
+        132, lk.block_tiles(n_blocks, block, block))
+    assert args[-1] == 1000 and site.launches == 1
     lk.reset_launches()
 
 
