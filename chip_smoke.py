@@ -8,23 +8,26 @@ Phases, each of which exits non-zero on any failure:
 1. device   the card's name and power limit (nvidia-smi);
 2. build    nvcc compiles every csrc/*.cu for sm_90a (every instance) and
             prints ptxas's registers, shared memory and spills; cuobjdump
-            -sass must show warpgroup MMAs (GMMA) and no IMMA in every
-            wgmma instance: both of the count kernel (K5, K6) and the four
-            of the block kernel (K1 / K8 and K4, tiles 320 and 256 wide);
+            -sass must show warpgroup MMAs (GMMA) and no IMMA or HMMA
+            (mma.sync) in every wgmma instance: both of the count kernel
+            (K5, K6) and the ten of the block kernel (K1 / K8, K1b in bf16
+            and in tf32, K3 and K4, each at tiles 320 and 256 wide);
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes the scan and the headline sweep give it (640-row
             blocks, W = 5,120 int8 haplotypes or 640 packed bytes, a ragged
-            row count, monomorphic rows): the triangle on int8 rows (K1,
-            the wgmma block kernel, bit for bit), the mma.sync triangle's
-            bf16 and tf32 routes (K1b) and its bit-plane form on the packed
-            bytes (K2); the mma.sync band sweep (K3) and the block kernel's
-            packed sweep (K4, bit for bit, also at blocks of 1,000); the
-            fused count pass (K5) and its bit-plane form
-            (K6), in both mask modes, both measures, with and without the
-            distance window, also at a count block (1,000) that the count
-            kernel's 128 x 320 tile does not divide.  Every bit-plane and
-            K1b output must equal its int8 twin's bit for bit (K2 = K1,
-            K1b = K1, K4 = K3, K6 = K5).
+            row count, monomorphic rows): the block kernel's triangle on
+            int8 rows (K1) and in bf16 and tf32 (K1b), bit for bit, also
+            at blocks of 200, 512, 1,000 and 1,024, K1b also at widths of
+            16 and 5,008 haplotypes and on signed int8 rows; the mma.sync
+            triangle on the packed bytes
+            (K2); the block kernel's band sweeps, dense (K3) and packed
+            (K4), bit for bit, also at blocks of 1,000 and with rows and
+            columns from matrices of different row counts; the fused count
+            pass (K5) and its bit-plane form (K6), in both mask modes, both
+            measures, with and without the distance window, also at a
+            count block (1,000) that the count kernel's 128 x 320 tile does
+            not divide.  Every bit-plane and K1b output must equal its int8
+            twin's bit for bit (K2 = K1, K1b = K1, K4 = K3, K6 = K5).
             Pass-1 counts against pass-2 hits in both mask modes and both
             resident layouts.  Per kernel its time, the plain version's,
             the least time the card could take and their ratio (the
@@ -73,10 +76,10 @@ Phases, each of which exits non-zero on any failure:
 K8 (the staged triangle kernel, ``ld_stage_blocks``: K1's kernel at four
 epilogues) is held against its plain version bit for bit at every stage
 in phase 3, at V = 10,240 with 512-row blocks and on the ragged rows, and
-timed there (the stage split).  So are K1 at the 512- and 1,024-row
-blocks and K2 at the 1,024-row blocks that ``bench.kernels --only fast``
-launches, and K1 at 200- and 1,000-row blocks, which its tile does not
-divide.
+timed there (the stage split).  So are K1 and K1b at the 512- and
+1,024-row blocks and K2 at the 1,024-row blocks that ``bench.kernels
+--only fast`` launches, and K1 and K1b at 200- and 1,000-row blocks,
+which their tile does not divide.
 
 It ends with a JSON line of the build time, the scans' phases and launch
 counts and the headline record, a ``kernels`` JSON line, the nvidia-smi
@@ -119,21 +122,31 @@ N_TRIANGLE = 10_240  # the headline triangle sweep of bench.py
 N_RAGGED = 10_000    # the ragged check slice: its last block is partial
 N_PARITY = 10_240    # the -E cuda / -E torch store
 LIMIT = "TPU_LD_DENSE_RESIDENT_BYTES"
-SOURCE = "ld_tools_tpu_torch/csrc/ld_kernels.cu"  # K1b, K2, K3 (mma.sync)
+SOURCE = "ld_tools_tpu_torch/csrc/ld_kernels.cu"  # K2 (mma.sync)
 COUNT_SOURCE = "ld_tools_tpu_torch/csrc/ld_count_sm90.cu"  # K5, K6 (K7)
-BLOCK_SOURCE = "ld_tools_tpu_torch/csrc/ld_block_sm90.cu"  # K1, K8, K4
+BLOCK_SOURCE = "ld_tools_tpu_torch/csrc/ld_block_sm90.cu"  # K1, K8, K1b, K3, K4
 # the wgmma instances of ld_block_sm90.cu (K8: K1's at four epilogues)
 K1 = "ld_block_kernel<FORM_S8,STORE_TRIANGLE>"
+K1B_BF16 = "ld_block_kernel<FORM_BF16,STORE_TRIANGLE>"
+K1B_TF32 = "ld_block_kernel<FORM_TF32,STORE_TRIANGLE>"
+K3 = "ld_block_kernel<FORM_S8,STORE_SWEEP>"
 K4 = "ld_block_kernel<FORM_BITS,STORE_SWEEP>"
+# the mma.sync triangle of ld_kernels.cu
+K2 = "ld_triangle_kernel<FORM_BITS>"
 PALLAS = "ld_tools_tpu/ops/ld_pallas.py"
 # K8's stages (ops/ld_kernels.STAGES) and block (bench_microkernels.py's)
 STAGES = ("counts", "scale", "fast", "exact")
 STAGE_BLOCK = 512
-# the other (route, block) pairs ``bench.kernels --only fast`` launches
-BENCH_BLOCKS = ((K1, 512), (K1, 1024), ("ld_triangle_kernel<FORM_BITS>", 1024))
-# K1 and K4 also at block sides their tile does not divide (the wgmma
-# kernels' 128-row tiles, 256 columns wide at these)
+# the triangle routes beside the 640-row blocks: K1 and K1b at the blocks
+# ``bench.kernels --only fast`` launches (512, 1,024) and at sides their
+# tile does not divide (200, 1,000: 128-row tiles, 256 columns wide), K2
+# at 1,024 (its bench block)
 UNTIDY_BLOCKS = (200, UNTIDY_BLOCK)
+OTHER_BLOCKS = tuple((name, block) for name in (K1, K1B_BF16, K1B_TF32)
+                     for block in (512, 1024) + UNTIDY_BLOCKS) + ((K2, 1024),)
+# K1b at widths of the haplotype axis that its stage (64 bf16 or 32 f32
+# haplotypes) does not divide: one 16-byte chunk, and the panel's 5,008
+K1B_WIDTHS = (16, N_HAP)
 
 
 def _stage_kernel(stage):
@@ -144,10 +157,10 @@ def _stage_kernel(stage):
 # kernel name -> (its tag in ROADMAP.md, the TPU kernel it replaces)
 KERNELS = {
     K1: ("K1", f"{PALLAS}:259"),
-    "ld_triangle_kernel<FORM_BF16>": ("K1b", f"{PALLAS}:292"),
-    "ld_triangle_kernel<FORM_TF32>": ("K1b", f"{PALLAS}:292"),
-    "ld_triangle_kernel<FORM_BITS>": ("K2", f"{PALLAS}:303"),
-    "ld_band_sweep_kernel": ("K3", f"{PALLAS}:747"),
+    K1B_BF16: ("K1b", f"{PALLAS}:292"),
+    K1B_TF32: ("K1b", f"{PALLAS}:292"),
+    K2: ("K2", f"{PALLAS}:303"),
+    K3: ("K3", f"{PALLAS}:747"),
     K4: ("K4", f"{PALLAS}:693"),
     "ld_band_count_kernel": ("K5", f"{PALLAS}:909"),
     "ld_band_count_kernel<FORM_BITS>": ("K6", f"{PALLAS}:949"),
@@ -158,10 +171,10 @@ KERNELS = {
 # launch site (ops/ld_kernels.py) -> the kernel it launches
 KERNEL_OF_SITE = {
     "ld_triangle_blocks": K1,
-    "ld_triangle_blocks_bf16": "ld_triangle_kernel<FORM_BF16>",
-    "ld_triangle_blocks_tf32": "ld_triangle_kernel<FORM_TF32>",
-    "ld_triangle_blocks_packed": "ld_triangle_kernel<FORM_BITS>",
-    "ld_band_sweep_blocks": "ld_band_sweep_kernel",
+    "ld_triangle_blocks_bf16": K1B_BF16,
+    "ld_triangle_blocks_tf32": K1B_TF32,
+    "ld_triangle_blocks_packed": K2,
+    "ld_band_sweep_blocks": K3,
     "ld_band_sweep_blocks_packed": K4,
     "ld_band_count": "ld_band_count_kernel",
     "ld_band_count_packed": "ld_band_count_kernel<FORM_BITS>",
@@ -385,16 +398,26 @@ def _cuobjdump():
 
 
 # the wgmma instances (template arguments: form, and for ld_block_kernel
-# the store and the tile width): K5, K6; K1 / K8 and K4 at both widths
-WGMMA_INSTANCES = ("ld_band_count_kernel<0>", "ld_band_count_kernel<1>",
-                   "ld_block_kernel<0,0,320>", "ld_block_kernel<0,0,256>",
-                   "ld_block_kernel<1,1,320>", "ld_block_kernel<1,1,256>")
+# the store and the tile width): K5, K6; K1 / K8, K3, K4, K1b bf16 and
+# K1b tf32 at both widths
+WGMMA_INSTANCES = (
+    "ld_band_count_kernel<0>", "ld_band_count_kernel<1>",
+    "ld_block_kernel<0,0,320>", "ld_block_kernel<0,0,256>",
+    "ld_block_kernel<0,1,320>", "ld_block_kernel<0,1,256>",
+    "ld_block_kernel<1,1,320>", "ld_block_kernel<1,1,256>",
+    "ld_block_kernel<2,0,320>", "ld_block_kernel<2,0,256>",
+    "ld_block_kernel<3,0,320>", "ld_block_kernel<3,0,256>",
+)
+# the SASS of the tensor-core paths: warpgroup MMAs (IGMMA, HGMMA) and
+# mma.sync's integer and float MMAs
+SASS_MMA = ("GMMA", "IMMA", "HMMA")
 
 
 def check_wgmma_sass(lib):
     """Every instance of the count kernel (K5 <0>, K6 <1>) and of the
-    block kernel (K1 / K8 <0,0,TN>, K4 <1,1,TN>) runs warpgroup MMAs: its
-    SASS holds GMMA instructions and no IMMA (mma.sync)."""
+    block kernel (K1 / K8 <0,0,TN>, K3 <0,1,TN>, K4 <1,1,TN>, K1b
+    <2,0,TN> and <3,0,TN>) runs warpgroup MMAs: its SASS holds GMMA
+    instructions and no IMMA or HMMA (mma.sync, s8 or bf16 / tf32)."""
     sass = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     ops, fn = {}, None
@@ -402,16 +425,17 @@ def check_wgmma_sass(lib):
         if "Function :" in ln:
             fn = _instance(ln)
             if fn:
-                ops[fn] = {"GMMA": 0, "IMMA": 0}
+                ops[fn] = dict.fromkeys(SASS_MMA, 0)
         elif fn:
             for op in ops[fn]:
                 ops[fn][op] += len(re.findall(rf"\b\w*{op}\b", ln))
     for inst in WGMMA_INSTANCES:
         n = ops.get(inst)
         check(n is not None, f"no SASS for {inst} in {lib}")
-        check(n["GMMA"] > 0 and n["IMMA"] == 0,
-              f"{inst} SASS: {n['GMMA']} GMMA, {n['IMMA']} IMMA instructions")
-        log(f"  sass {inst}: {n['GMMA']} GMMA, {n['IMMA']} IMMA")
+        counts = ", ".join(f"{n[op]} {op}" for op in SASS_MMA)
+        check(n["GMMA"] > 0 and n["IMMA"] == 0 and n["HMMA"] == 0,
+              f"{inst} SASS: {counts} instructions")
+        log(f"  sass {inst}: {counts}")
     return {inst: ops[inst] for inst in WGMMA_INSTANCES}
 
 
@@ -443,27 +467,23 @@ def _triangle_routes():
     from ld_tools_tpu_torch.ops import ld_kernels as lk
 
     return {
-        K1: (lk.ld_triangle_blocks,
-                               lk.ld_triangle_blocks_plain, False,
-                               H100_INT8_OPS),
-        "ld_triangle_kernel<FORM_BF16>": (lk.ld_triangle_blocks_bf16,
-                                          lk.ld_triangle_blocks_bf16_plain,
-                                          False, H100_BF16_FLOPS),
-        "ld_triangle_kernel<FORM_TF32>": (lk.ld_triangle_blocks_tf32,
-                                          lk.ld_triangle_blocks_tf32_plain,
-                                          False, H100_TF32_FLOPS),
-        "ld_triangle_kernel<FORM_BITS>": (lk.ld_triangle_blocks_packed,
-                                          lk.ld_triangle_blocks_packed_plain,
-                                          True, H100_INT8_OPS),
+        K1: (lk.ld_triangle_blocks, lk.ld_triangle_blocks_plain, False,
+             H100_INT8_OPS),
+        K1B_BF16: (lk.ld_triangle_blocks_bf16,
+                   lk.ld_triangle_blocks_bf16_plain, False, H100_BF16_FLOPS),
+        K1B_TF32: (lk.ld_triangle_blocks_tf32,
+                   lk.ld_triangle_blocks_tf32_plain, False, H100_TF32_FLOPS),
+        K2: (lk.ld_triangle_blocks_packed,
+             lk.ld_triangle_blocks_packed_plain, True, H100_INT8_OPS),
     }
 
 
 def _check_triangle(name, g, gq, c1, ipq, cij, what, block=BLOCK):
     """A triangle route against its plain version on the ``block``-row
-    blocks ``cij``, fast and exact epilogues, D' on and off (K1 bit for
-    bit, the mma.sync routes within 1e-6), and against K1 (its int8 twin)
-    bit for bit; the largest abs error against the plain version.  ``g``
-    holds the int8 rows, ``gq`` the same rows packed."""
+    blocks ``cij``, fast and exact epilogues, D' on and off (the wgmma
+    routes, K1 and K1b, bit for bit; K2 within 1e-6), and against K1 (its
+    int8 twin) bit for bit; the largest abs error against the plain
+    version.  ``g`` holds the int8 rows, ``gq`` the same rows packed."""
     import torch
 
     from ld_tools_tpu_torch.ops import ld_kernels as lk
@@ -487,7 +507,7 @@ def _check_triangle(name, g, gq, c1, ipq, cij, what, block=BLOCK):
             err = max(err, e)
             tag = f"{name} {what} block {block} {epi}/dp={want_dp}"
             check(e <= 1e-6, f"{tag}: max abs err {e}")
-            check(name != K1 or torch.equal(a, b),
+            check(name == K2 or torch.equal(a, b),
                   f"{tag}: differs from the plain version in "
                   f"{int((a != b).sum())} cells")
             check(torch.equal(a, t), f"{tag}: differs from K1")
@@ -543,8 +563,7 @@ def phase_triangles(results, g1, gq1):
     mm1 = cuda_ms(lambda: int_mm_rows(g1, v1 // BLOCK, BLOCK), reps=5)
     # K1b's own yardsticks: the same block products in its operand types
     mm_bf16, mm_tf32 = float_yardsticks(g1, v1 // BLOCK, BLOCK)
-    yardsticks = {"ld_triangle_kernel<FORM_BF16>": ("bf16", mm_bf16),
-                  "ld_triangle_kernel<FORM_TF32>": ("tf32", mm_tf32)}
+    yardsticks = {K1B_BF16: ("bf16", mm_bf16), K1B_TF32: ("tf32", mm_tf32)}
     out = (torch.empty((v1, v1), dtype=torch.float32, device=dev), None)
     G1_dev = g1[:, :N_HAP].contiguous()
     gp1_dev = gq1[:, :N_HAP // 8].contiguous()
@@ -552,15 +571,15 @@ def phase_triangles(results, g1, gq1):
     paths = {
         K1: ("ld_triangle_matrix", lambda: (
             lk.ld_triangle_matrix(G1_dev, N_HAP, **fast))),
-        "ld_triangle_kernel<FORM_BF16>": (
+        K1B_BF16: (
             "ld_triangle_matrix(mxu_dtype=bfloat16)",
             lambda: lk.ld_triangle_matrix(G1_dev, N_HAP,
                                           mxu_dtype="bfloat16", **fast)),
-        "ld_triangle_kernel<FORM_TF32>": (
+        K1B_TF32: (
             "ld_triangle_matrix(mxu_dtype=float32)",
             lambda: lk.ld_triangle_matrix(G1_dev, N_HAP,
                                           mxu_dtype="float32", **fast)),
-        "ld_triangle_kernel<FORM_BITS>": (
+        K2: (
             "ld_triangle_matrix_packed(kernel=bitplane)",
             lambda: lk.ld_triangle_matrix_packed(gp1_dev, N_HAP,
                                                  kernel="bitplane", **fast)),
@@ -605,20 +624,78 @@ def phase_triangles(results, g1, gq1):
         log(f"{KERNELS[name][0]} {name}: {ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm1:.3f} ms"
             f"{note}, max abs err {err:.3g}")
-    del out, r2_k1
-    for name, block in BENCH_BLOCKS:
-        bi, bj = lk._triangle_coords(v1 // block)
+    # K1b's widening on the stage's critical path: the same blocks on rows
+    # of -1, 0, 1 and 2 take its general path (2.75 operations a value in
+    # bf16, 2.25 in tf32) in place of the 0/1 one (1 in bf16)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    g_any = torch.randint(-1, 3, g1.shape, generator=gen, device=dev,
+                          dtype=torch.int32).to(torch.int8)
+    for name in (K1B_BF16, K1B_TF32):
+        site = _triangle_routes()[name][0]
+        ms = cuda_ms(lambda: site(g_any, c1, ipq, cij1, N_HAP, out=out,
+                                  **fast), reps=20)
+        results[name]["extra"]["general_widen_ms"] = ms
+        log(f"K1b {name} on rows of -1..2 (the general widening): {ms:.3f} "
+            f"ms against {results[name]['ms']:.3f} on 0/1 rows")
+    del out, r2_k1, g_any
+    for name, block in OTHER_BLOCKS:
+        bi, bj = lk._triangle_coords(-(-v1 // block))
         cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
         e = _check_triangle(name, g1, gq1, c1, ipq, cij, f"V={v1}", block)
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
-    for block in UNTIDY_BLOCKS:
-        bi, bj = lk._triangle_coords(-(-v1 // block))
-        cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
-        e = _check_triangle(K1, g1, gq1, c1, ipq, cij, f"V={v1}", block)
-        results[K1]["max_abs_err"] = max(results[K1]["max_abs_err"], e)
-    log(f"K1 at blocks 512, 1024, {UNTIDY_BLOCKS}, K2 at 1024: equal the "
-        f"plain versions (V={v1})")
+    log(f"K1 and K1b at blocks 512, 1024, {UNTIDY_BLOCKS}, K2 at 1024: "
+        f"equal the plain versions and K1 (V={v1})")
+    check_k1b_widths(g1[:N_RAGGED])
     torch.cuda.empty_cache()
+
+
+def check_k1b_widths(g):
+    """K1b (both forms) at haplotype widths its stage does not divide
+    (K1B_WIDTHS: the last stage of 64 bf16 or 32 f32 haplotypes reads past
+    W, where TMA fills zeros), on ragged rows at 640- and 200-row blocks,
+    every epilogue; then on signed int8 rows (the widening's path for
+    values other than 0 and 1; W = 512 keeps every sum below 2^24):
+    equal to the plain version and to K1, bit for bit (compared as int32
+    bits, so that the NaN the exact epilogue makes of such counts
+    compares too)."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    dev = g.device
+    v = g.shape[0]
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(7)
+    signed = torch.randint(-128, 128, (v, 512), generator=gen, device=dev,
+                           dtype=torch.int32).to(torch.int8)
+    cases = [(g[:, :w].contiguous(), f"W={w}") for w in K1B_WIDTHS]
+    cases.append((signed, "signed int8, W=512"))
+    for gw, what in cases:
+        w = gw.shape[1]
+        cw = gw.to(torch.float32).sum(dim=1)
+        ipq = lk._ipq_from_counts(cw, torch.tensor(float(w), device=dev))
+        for block in (BLOCK, 200):
+            bi, bj = lk._triangle_coords(-(-v // block))
+            cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
+            for epi, want_dp in (("fast", False), ("exact", True)):
+                kw = dict(epilogue=epi, want_dprime=want_dp, block_m=block,
+                          block_n=block)
+                twin = lk.ld_triangle_blocks(gw, cw, ipq, cij, w, **kw)
+                for name in (K1B_BF16, K1B_TF32):
+                    site, plain, _, _ = _triangle_routes()[name]
+                    got = site(gw, cw, ipq, cij, w, **kw)
+                    ref = plain(gw, cw, ipq, cij, w, **kw)
+                    tag = f"{name} {what} block {block} {epi}/dp={want_dp}"
+                    for a, b, t in zip(got, ref, twin):
+                        if b is None:
+                            continue
+                        a, b, t = (x.view(torch.int32) for x in (a, b, t))
+                        check(torch.equal(a, b), f"{tag}: differs from the "
+                              f"plain version in {int((a != b).sum())} cells")
+                        check(torch.equal(a, t), f"{tag}: differs from K1")
+    log(f"K1b at widths {K1B_WIDTHS} and on signed int8 rows: equals the "
+        f"plain versions and K1 ({v} ragged rows, blocks {BLOCK} and 200)")
 
 
 def _check_stage(stage, g, c1, ipq, cij, what):
@@ -752,17 +829,12 @@ def phase_ragged(gp_host, pos, results):
     for name in _triangle_routes():
         e = _check_triangle(name, g, gq, c1r, ipqr, cij, f"V={n_rows}")
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
-    for name, block in BENCH_BLOCKS:
+    for name, block in OTHER_BLOCKS:
         bib, bjb = np.tril_indices(-(-n_rows // block))
         cijb = torch.from_numpy(lk.pack_block_coords(bib, bjb)).to(dev)
         e = _check_triangle(name, g, gq, c1r, ipqr, cijb, f"V={n_rows}",
                             block)
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
-    for block in UNTIDY_BLOCKS:
-        bib, bjb = np.tril_indices(-(-n_rows // block))
-        cijb = torch.from_numpy(lk.pack_block_coords(bib, bjb)).to(dev)
-        e = _check_triangle(K1, g, gq, c1r, ipqr, cijb, f"V={n_rows}", block)
-        results[K1]["max_abs_err"] = max(results[K1]["max_abs_err"], e)
     # K8 at the microkernel bench's 512-row blocks: the last is partial
     bi8, bj8 = np.tril_indices(-(-n_rows // STAGE_BLOCK))
     cij8 = torch.from_numpy(lk.pack_block_coords(bi8, bj8)).to(dev)
@@ -772,37 +844,43 @@ def phase_ragged(gp_host, pos, results):
         r["max_abs_err"] = max(r["max_abs_err"], e)
     log(f"K8: every stage equals the plain version ({n_rows} ragged rows, "
         f"{STAGE_BLOCK}-row blocks)")
-    err = {"ld_band_sweep_kernel": 0.0, K4: 0.0}
+    err = {K3: 0.0, K4: 0.0}
+    # rows and columns from one matrix, then (the dense sweep's two maps)
+    # rows from a shorter one: the blocks past its edge read zeros
+    n_short = n_rows - 1357
     for block, blocks in ((BLOCK, cij), (UNTIDY_BLOCK, ciju)):
-        # the last blocks hold the ragged edge: K4 writes their cells past it
+        # the last blocks hold the ragged edge: the sweeps write their
+        # cells past it
         hit = torch.cat([blocks[:20], blocks[-20:]])
-        for outs, sel in ((("cab",), 0), (("cab", "r2", "dp", "meas"), 0),
-                          (("meas",), 1)):
+        for outs, sel, n_a in ((("cab",), 0, n_rows),
+                               (("cab", "r2", "dp", "meas"), 0, n_rows),
+                               (("meas",), 1, n_rows),
+                               (("cab", "r2", "dp", "meas"), 1, n_short)):
             kw = dict(outs=outs, sel=sel, block_m=block, block_n=block)
-            vecs = (c1r, c1r, ipqr, ipqr, hit, N_HAP)
-            got3 = lk.ld_band_sweep_blocks(g, g, *vecs, **kw)
-            got4 = lk.ld_band_sweep_blocks_packed(gq, gq, *vecs, **kw)
-            ref3 = lk.ld_band_sweep_blocks_plain(g, g, *vecs, **kw)
-            ref4 = lk.ld_band_sweep_blocks_packed_plain(gq, gq, *vecs, **kw)
-            for name, got, ref in (("ld_band_sweep_kernel", got3, ref3),
-                                   (K4, got4, ref4)):
+            vecs = (c1r[:n_a], c1r, ipqr[:n_a], ipqr, hit, N_HAP)
+            ga, gqa = g[:n_a], gq[:n_a]
+            got3 = lk.ld_band_sweep_blocks(ga, g, *vecs, **kw)
+            got4 = lk.ld_band_sweep_blocks_packed(gqa, gq, *vecs, **kw)
+            ref3 = lk.ld_band_sweep_blocks_plain(ga, g, *vecs, **kw)
+            ref4 = lk.ld_band_sweep_blocks_packed_plain(gqa, gq, *vecs, **kw)
+            for name, got, ref in ((K3, got3, ref3), (K4, got4, ref4)):
                 for o in outs:
-                    what = f"{name} block {block} {o} sel={sel}"
-                    if o == "cab" or name == K4:
-                        check(torch.equal(got[o], ref[o]),
-                              f"{what}: differs from the plain version in "
-                              f"{int((got[o] != ref[o]).sum())} cells")
-                    if o != "cab":
-                        e = float((got[o] - ref[o]).abs().max())
-                        err[name] = max(err[name], e)
-                        check(e <= 1e-6, f"{what}: max abs err {e}")
+                    what = (f"{name} block {block} {o} sel={sel} "
+                            f"rows {n_a}")
+                    e = float((got[o] - ref[o]).abs().max())
+                    err[name] = max(err[name], e)
+                    check(torch.equal(got[o], ref[o]),
+                          f"{what}: differs from the plain version in "
+                          f"{int((got[o] != ref[o]).sum())} cells (max abs "
+                          f"err {e})")
             for o in outs:
                 check(torch.equal(got4[o], got3[o]),
-                      f"K4 {o} block {block} differs from K3")
+                      f"K4 {o} block {block} rows {n_a} differs from K3")
     for name, e in err.items():
         results[name] = dict(max_abs_err=e)
-    log(f"K3, K4 at blocks {BLOCK} and {UNTIDY_BLOCK}: every output equals "
-        "the plain versions (K4 bit for bit); K4 = K3 bit for bit")
+    log(f"K3, K4 at blocks {BLOCK} and {UNTIDY_BLOCK}, rows of {n_rows} and "
+        f"{n_short}: every output equals the plain versions and K4 = K3, "
+        "bit for bit")
     # pass-1 counts against pass-2 hits, both mask modes, both layouts
     gpc = np.packbits(Gc.astype(np.uint8), axis=1)
     for max_hap in (ls._EXACT_MASK_MAX_HAP, 0):
@@ -911,7 +989,7 @@ def phase_scan_shapes(gp_host, pos, results):
     kw3 = dict(outs=("cab",), sel=0, block_m=BLOCK, block_n=BLOCK)
     cab = {}
     for name, res, site, plain in (
-            ("ld_band_sweep_kernel", rd, lk.ld_band_sweep_blocks,
+            (K3, rd, lk.ld_band_sweep_blocks,
              lk.ld_band_sweep_blocks_plain),
             (K4, rp,
              lk.ld_band_sweep_blocks_packed,
@@ -937,9 +1015,7 @@ def phase_scan_shapes(gp_host, pos, results):
         log(f"{KERNELS[name][0]} {name}: {ms:.3f} ms, plain {plain_ms:.3f} "
             f"ms, bound {b[0]:.3f} ms ({b[1]}), torch._int_mm {mm3:.3f} ms "
             f"({nb3} blocks), max abs err {results[name]['max_abs_err']:.3g}")
-    check(torch.equal(cab["ld_band_sweep_kernel"],
-                      cab[K4]),
-          "K4 main-path cab differs from K3's")
+    check(torch.equal(cab[K3], cab[K4]), "K4 main-path cab differs from K3's")
     del rd, rp, cab, counts
     torch.cuda.empty_cache()
 
@@ -1064,7 +1140,7 @@ def _log_scan(tag, report, secs, launches):
 
 
 # the count and sweep kernels of each resident layout (packed or not)
-LAYOUT_KERNELS = {False: ("ld_band_count_kernel", "ld_band_sweep_kernel"),
+LAYOUT_KERNELS = {False: ("ld_band_count_kernel", K3),
                   True: ("ld_band_count_kernel<FORM_BITS>", K4)}
 
 
@@ -1147,7 +1223,7 @@ def phase_scan(work, gp, pos, results):
               f"scan ({tag}): auto must inflate at chr21 scale")
         _check_layout_launches(tag, launches, packed=False)
         runs[tag] = (report, secs, launches)
-    for name in ("ld_band_count_kernel", "ld_band_sweep_kernel"):
+    for name in ("ld_band_count_kernel", K3):
         results[name]["launches"] = runs["full"][2][name]
 
     i, j, r2s, dps = _check_hits("full", runs["full"][0].path, gp, pos, 64,
@@ -1433,7 +1509,7 @@ def phase_sharded(work, stores, gp, pos, results):
         check(st["shards"] == SHARDS
               and st["blocks_checked"] == st["hit_blocks"] > 0,
               f"sharded scan ({layout}) stats {st}")
-        sweep = K4 if layout == "packed" else "ld_band_sweep_kernel"
+        sweep = K4 if layout == "packed" else K3
         _only_launched(f"the sharded scan ({layout})", runs["sharded"][2],
                        {"ld_band_count_sharded", sweep})
         if layout == "int8":
@@ -1711,7 +1787,7 @@ def main():
         kernels.append(dict(
             name=name, tag=tag, route="cuda",
             source=(COUNT_SOURCE if tag in ("K5", "K6", "K7") else
-                    BLOCK_SOURCE if tag in ("K1", "K4", "K8") else SOURCE),
+                    SOURCE if tag == "K2" else BLOCK_SOURCE),
             replaces=replaces, launches=r["launches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],

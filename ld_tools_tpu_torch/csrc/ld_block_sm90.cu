@@ -2,9 +2,10 @@
 //
 // One kernel, a template on the operand form of the rows (Form) and on
 // what it stores (Store), on the wgmma / TMA core of ld_sm90_core.cuh
-// that the count pass (ld_count_sm90.cu) runs on:
+// that the count pass (ld_count_sm90.cu) runs on.  Five instances, each
+// at tiles 320 and 256 wide:
 //
-//   <FORM_S8, STORE_TRIANGLE>  replaces ld_tools_tpu/ops/ld_pallas.py
+//   <FORM_S8, STORE_TRIANGLE>    replaces ld_tools_tpu/ops/ld_pallas.py
 //       _tri_kernel_dense, int8 (K1, :259; pallas_call :467), and
 //       scripts/bench_microkernels.py's staged triangle kernel (K8, :76;
 //       pallas_call :125): f32 r^2 (and D') of the listed (bi, bj) blocks
@@ -14,41 +15,61 @@
 //       block is written whole, the cells above the diagonal of a diagonal
 //       block too, as the TPU kernel writes it; cells past the matrix are
 //       never written (the caller's buffer holds its zeros there).
-//   <FORM_BITS, STORE_SWEEP>   replaces _band_sweep_kernel's packed branch
-//       (K4, _band_counts_packed :693; pallas_call :846) on the store's
-//       bitpacked bytes: any subset of cab (int32), r2, dp and meas (the
-//       fast r^2 when sel == 0, the exact-order D' when sel == 1) of
-//       block k at k bm bn + lr bn + lc, rows of g_rows against rows of
-//       g_cols.  EVERY cell of a listed block is written, past the matrix
-//       edge too (the epilogue of a zero count there): the caller
+//   <FORM_BF16, STORE_TRIANGLE>  replace _tri_kernel_dense's bf16 / f32
+//   <FORM_TF32, STORE_TRIANGLE>  branch (K1b, :292-298): the same
+//       triangle with the int8 rows cast to bf16 or f32 inside the kernel
+//       and multiplied in bf16 or TF32, summed in f32.  The sums are exact
+//       integers, so the outputs are K1's bit for bit.
+//   <FORM_S8, STORE_SWEEP>       replaces _band_sweep_kernel, dense (K3,
+//       :747; pallas_call :846): any subset of cab (int32), r2, dp and
+//       meas (the fast r^2 when sel == 0, the exact-order D' when sel ==
+//       1) of block k at k bm bn + lr bn + lc, rows of g_rows against
+//       rows of g_cols.  EVERY cell of a listed block is written, past the
+//       matrix edge too (the epilogue of a zero count there): the caller
 //       allocates the outputs uninitialised.
-// The other two combinations are not instantiated: the triangle on packed
-// bytes (K2) and the dense sweep (K3) still run on ld_kernels.cu's
+//   <FORM_BITS, STORE_SWEEP>     replaces the packed branch of the same
+//       kernel (K4, _band_counts_packed :693) on the store's bitpacked
+//       bytes: K3's outputs bit for bit.
+// The triangle on packed bytes (K2) still runs on ld_kernels.cu's
 // mma.sync core.
 //
 // Bound: the tensor-core operations.  The headline sweep (bench.py: V =
 // 10,240 x 5,120 haplotypes, 136 blocks of 640^2) is 2 x 5,008 x 55.7 M
-// cells = 0.28 ms at the H100's 1,979e12 int8 operations a second; it
-// writes 223 MB of f32 (0.067 ms at 3.35 TB/s) and reads 52 MB.  So the
-// stores must drain under the products, not after them.
+// cells = 0.28 ms at the H100's 1,979e12 int8 operations a second (0.56
+// ms at 989e12 bf16, 1.13 ms at 495e12 TF32); it writes 223 MB of f32
+// (0.067 ms at 3.35 TB/s) and reads 52 MB.  So the stores must drain
+// under the products, not after them.
 //
 // The design, and what it does about what held the mma.sync kernels it
 // replaces (K1 at 0.22 of that peak and 1.31x torch._int_mm's time over
-// the same blocks; K4 at 0.29):
-//  1. The core of the count pass: wgmma m64n160k32 (or m64n128k32) s8.s8
-//     -> s32 from shared memory through descriptors (no per-thread fragment
-//     loads), a 3-stage TMA + mbarrier ring that no __syncthreads
-//     interrupts, persistent thread blocks (grid = min(SMs, tiles), from
-//     the wrapper) walking blocks x tiles, setmaxnreg giving the two
-//     consumer warpgroups the accumulators' registers.  K4's bytes are
-//     unpacked into the s8 stages by the producer warpgroups' unpack
-//     warps, as K6's are.
-//  2. Tile width.  A tile is 128 rows x TN columns, TN = 320 where it
+// the same blocks; K3 at 0.22, K4 at 0.29; K1b at 0.17 / 0.26, 3.7x and
+// 2.2x torch.matmul in bf16 / TF32):
+//  1. The core of the count pass: wgmma m64n160 (or m64n128) from shared
+//     memory through descriptors (no per-thread fragment loads), a
+//     3-stage TMA + mbarrier ring that no __syncthreads interrupts,
+//     persistent thread blocks (grid = min(SMs, tiles), from the wrapper)
+//     walking blocks x tiles, setmaxnreg giving the two consumer
+//     warpgroups the accumulators' registers.  K4's bytes are unpacked
+//     into the s8 stages by the producer warpgroups' unpack warps, as
+//     K6's are.
+//  2. K1b's operands.  A ring stage is one 128-byte swizzle row a row in
+//     every form: 128 int8, 64 bf16 or 32 f32 haplotypes, and the wgmma
+//     k-step is 32 bytes of it (k32 s8, k16 bf16, k8 tf32), so the
+//     descriptors and the main loop are K1's; a tile takes 2x (bf16) or
+//     4x (tf32) as many stages.  The kernel reads the int8 rows, never a
+//     widened copy: TMA lands each stage's 64 or 32 int8 bytes a row in
+//     the last quarter or eighth of the stage's own 32-row groups, and
+//     the 7 reshaping warps widen them in place to bf16 / f32 (exact for
+//     every int8), in the 128-byte swizzle, as K4's unpack warps write
+//     bit-planes.  No shared memory is added: the landing is as deep as
+//     the 3-stage ring.  The f32 accumulators hold exact integers below
+//     2^24 and enter the epilogue as int32 counts.
+//  3. Tile width.  A tile is 128 rows x TN columns, TN = 320 where it
 //     divides the block side (640, the headline's and the scan's) and 256
 //     otherwise (512 and 1,024: 2 and 4 tiles with no waste; 1,000 wastes
 //     2.4 % of its columns against 28 % at 320).  block_tile_n is the
 //     rule; ops/ld_kernels.py mirrors it, and its test reads it here.
-//  3. Epilogue and store.  Each warp passes its 16 rows x TN counts
+//  4. Epilogue and store.  Each warp passes its 16 rows x TN counts
 //     through a 16 x 32 shared-memory chunk (the count pass's), lane l
 //     then finishes column l down the 16 rows in code specialised to the
 //     epilogue mode, so each row's 32 lanes store 128 contiguous bytes.
@@ -57,9 +78,9 @@
 //     wgmmas (the producer has run ahead into that tile during the
 //     epilogue).  No TMA store: the ring and the chunks leave no room for
 //     a staged output tile.
-//  4. Arithmetic.  ld_epilogue / fast_r2 of ld_common.cuh on the exact
+//  5. Arithmetic.  ld_epilogue / fast_r2 of ld_common.cuh on the exact
 //     int32 counts, built with -fmad=false, so every value equals the
-//     plain PyTorch version's bit for bit, and K4's equal K3's.
+//     plain PyTorch version's bit for bit, K1b's K1's and K4's K3's.
 // What this design does not do: overlap the epilogue's arithmetic with the
 // products (both consumer warpgroups finish a tile together).
 
@@ -265,8 +286,8 @@ __device__ __forceinline__ void consume(BlockSmem& sm, const W& walk,
         const Tile c = walk.at(t);
         if (!c.live) continue;
         const VecRegs vr = load_vecs<TN>(c, ct, a);
-        int acc0[HALF_N / 2], acc1[HALF_N / 2];
-        mainloop<HALF_N>(sm.ring, q, wg, wg_leader, acc0, acc1, nk);
+        Acc<FORM> acc0[HALF_N / 2], acc1[HALF_N / 2];
+        mainloop<FORM, HALF_N>(sm.ring, q, wg, wg_leader, acc0, acc1, nk);
 
         // the vectors of the tile two back are read by now (one barrier)
         BlockVecs& vec = sm.vec[it & 1];
@@ -294,8 +315,9 @@ __global__ void __launch_bounds__(n_threads<FORM>(), 1)
 ld_block_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b,
                 const __grid_constant__ BlockArgs a) {
-    static_assert((FORM == FORM_S8 && STORE == STORE_TRIANGLE) ||
-                  (FORM == FORM_BITS && STORE == STORE_SWEEP),
+    static_assert(STORE == STORE_TRIANGLE ? FORM != FORM_BITS
+                                          : FORM == FORM_S8 ||
+                                                FORM == FORM_BITS,
                   "the routed instances only");
     extern __shared__ uint8_t smem_raw[];
     BlockSmem& sm = aligned_smem<BlockSmem>(smem_raw);
@@ -303,13 +325,12 @@ ld_block_kernel(const __grid_constant__ CUtensorMap map_a,
     // the triangle's rows and columns are one matrix's
     const W walk(a.cij, a.block_m, a.block_n, a.n_rows_a);
     const int n_tiles = walk.tiles(a.n_blocks);
-    constexpr int KSTEP = FORM == FORM_BITS ? KB_PACKED : KB;
-    const int nk = (a.W + KSTEP - 1) / KSTEP;
+    const int nk = (a.W + stage_src_bytes(FORM) - 1) / stage_src_bytes(FORM);
     if (threadIdx.x == 0) ring_init<FORM>(sm.ring);
     __syncthreads();
     run_roles<FORM>(
         [&] { produce<FORM, TN>(sm.ring, &map_a, &map_b, walk, n_tiles, nk); },
-        [&] { unpack<TN>(sm.ring, walk, n_tiles, nk); },
+        [&] { reshape<FORM, TN>(sm.ring, walk, n_tiles, nk); },
         [&] { consume<FORM, STORE, TN>(sm, walk, a, n_tiles, nk); });
 }
 
@@ -343,11 +364,11 @@ int launch_block(const void* ga, const void* gb, const BlockArgs& a,
 // ---- plain C interface (loaded with ctypes; see ld_kernels.cu) -------------
 // ``grid`` is the number of persistent thread blocks (the wrapper passes
 // min(SMs, tiles)).  Returns cudaErrorInvalidValue without a launch for a
-// form with no routed instance (the triangle takes FORM_S8, the sweep
-// FORM_BITS), an unknown epilogue, a grid below 1, a block side outside
-// [1, 2048], no rows, a W that is not a positive multiple of 16 or a
-// matrix that TMA cannot describe; cudaErrorSymbolNotFound when the
-// driver has no cuTensorMapEncodeTiled.
+// form with no routed instance (the triangle takes FORM_S8, FORM_BF16
+// and FORM_TF32, the sweep FORM_S8 and FORM_BITS), an unknown epilogue, a
+// grid below 1, a block side outside [1, 2048], no rows, a W that is not
+// a positive multiple of 16 or a matrix that TMA cannot describe;
+// cudaErrorSymbolNotFound when the driver has no cuTensorMapEncodeTiled.
 
 extern "C" {
 
@@ -356,8 +377,9 @@ int ldk_block_triangle(const void* g, const void* c1, const void* ipq,
                        int block_m, int block_n, float n_f, float inv_n,
                        int epi, int form, int grid, void* r2, void* dp,
                        void* stream) {
-    if (form != FORM_S8 || epi < EPI_EXACT || epi > EPI_SCALE ||
-        (dp && epi != EPI_EXACT) || !r2)
+    if ((form != FORM_S8 && form != FORM_BF16 && form != FORM_TF32) ||
+        epi < EPI_EXACT || epi > EPI_SCALE || (dp && epi != EPI_EXACT) ||
+        !r2)
         return static_cast<int>(cudaErrorInvalidValue);
     BlockArgs a{};
     a.c1a = a.c1b = static_cast<const float*>(c1);
@@ -373,6 +395,10 @@ int ldk_block_triangle(const void* g, const void* c1, const void* ipq,
     a.mode = dp ? MODE_EXACT_DP : epi;
     a.r2 = static_cast<float*>(r2);
     a.dp = static_cast<float*>(dp);
+    if (form == FORM_BF16)
+        return launch_block<FORM_BF16, STORE_TRIANGLE>(g, g, a, grid, stream);
+    if (form == FORM_TF32)
+        return launch_block<FORM_TF32, STORE_TRIANGLE>(g, g, a, grid, stream);
     return launch_block<FORM_S8, STORE_TRIANGLE>(g, g, a, grid, stream);
 }
 
@@ -382,7 +408,7 @@ int ldk_block_sweep(const void* ga, const void* gb, const void* c1a,
                     int n_rows_b, int W, int block_m, int block_n, float n_f,
                     float inv_n, int sel, int form, int grid, void* cab,
                     void* r2, void* dp, void* meas, void* stream) {
-    if (form != FORM_BITS || sel < 0 || sel > 1)
+    if ((form != FORM_S8 && form != FORM_BITS) || sel < 0 || sel > 1)
         return static_cast<int>(cudaErrorInvalidValue);
     BlockArgs a{};
     a.c1a = static_cast<const float*>(c1a);
@@ -403,7 +429,9 @@ int ldk_block_sweep(const void* ga, const void* gb, const void* c1a,
     a.r2 = static_cast<float*>(r2);
     a.dp = static_cast<float*>(dp);
     a.meas = static_cast<float*>(meas);
-    return launch_block<FORM_BITS, STORE_SWEEP>(ga, gb, a, grid, stream);
+    if (form == FORM_BITS)
+        return launch_block<FORM_BITS, STORE_SWEEP>(ga, gb, a, grid, stream);
+    return launch_block<FORM_S8, STORE_SWEEP>(ga, gb, a, grid, stream);
 }
 
 }  // extern "C"

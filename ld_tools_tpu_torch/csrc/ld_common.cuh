@@ -94,13 +94,10 @@ __device__ __forceinline__ float fallback_meas(int cab, float c1a, float c1b,
 // The kernel instance for operand form ``form`` (a runtime int), or
 // nullptr for a form with no instance.
 template <typename Kernel>
-Kernel pick(int form, Kernel s8, Kernel bits, Kernel bf16 = nullptr,
-            Kernel tf32 = nullptr) {
+Kernel pick(int form, Kernel s8, Kernel bits) {
     switch (form) {
         case FORM_S8: return s8;
         case FORM_BITS: return bits;
-        case FORM_BF16: return bf16;
-        case FORM_TF32: return tf32;
         default: return nullptr;
     }
 }

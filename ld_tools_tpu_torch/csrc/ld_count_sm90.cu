@@ -229,7 +229,7 @@ __device__ __forceinline__ void consume(
         if (!c.live) continue;
         const VecRegs vr = load_vecs(c, ct, c1, ipq, pos, walk.n_rows);
         int acc0[CT_HALF_N / 2], acc1[CT_HALF_N / 2];
-        mainloop<CT_HALF_N>(sm.ring, q, wg, wg_leader, acc0, acc1, nk);
+        mainloop<FORM, CT_HALF_N>(sm.ring, q, wg, wg_leader, acc0, acc1, nk);
 
         const int buf = it & 1;
         CountVecs& vec = sm.vec[buf];
@@ -278,14 +278,13 @@ ld_band_count_kernel(const __grid_constant__ CUtensorMap map,
     CountSmem& sm = aligned_smem<CountSmem>(smem_raw);
     const CountWalk walk(cij, block_m, block_n, n_rows);
     const int n_tiles = walk.tiles(n_blocks);
-    constexpr int KSTEP = FORM == FORM_BITS ? KB_PACKED : KB;
-    const int nk = (W + KSTEP - 1) / KSTEP;
+    const int nk = (W + stage_src_bytes(FORM) - 1) / stage_src_bytes(FORM);
     if (threadIdx.x == 0) ring_init<FORM>(sm.ring);
     __syncthreads();
     // the count pass reads one matrix: A and B are the same map
     run_roles<FORM>(
         [&] { produce<FORM, CT_N>(sm.ring, &map, &map, walk, n_tiles, nk); },
-        [&] { unpack<CT_N>(sm.ring, walk, n_tiles, nk); },
+        [&] { reshape<FORM, CT_N>(sm.ring, walk, n_tiles, nk); },
         [&] {
             consume<FORM>(sm, walk, c1, ipq, pos, n_tiles, nk, n_hap, n_f,
                           inv_n, thres, max_dist, sel, exact_mask, use_dist,

@@ -24,10 +24,10 @@ import time
 from ld_tools_tpu_torch.utils.paths import BUILD_DIR, PKG_ROOT
 
 CSRC = os.path.join(PKG_ROOT, "csrc")
-# ld_kernels.cu: the mma.sync triangle and band sweep (K1b, K2, K3);
-# ld_block_sm90.cu: the wgmma / TMA triangle (K1, K8) and packed sweep
-# (K4); ld_count_sm90.cu: the wgmma / TMA count pass (K5, K6); the last
-# two share ld_sm90_core.cuh
+# ld_kernels.cu: the mma.sync packed triangle (K2); ld_block_sm90.cu: the
+# wgmma / TMA triangle (K1, K8; bf16 and tf32, K1b) and band sweeps (K3,
+# K4); ld_count_sm90.cu: the wgmma / TMA count pass (K5, K6); the last two
+# share ld_sm90_core.cuh
 SOURCES = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cu"))))
 HEADERS = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
 LIB = os.path.join(BUILD_DIR, "libld_kernels.so")
@@ -54,10 +54,6 @@ _SIGNATURES = {
     "ldk_band_count": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I,
         _I, _I, _I, _I, _I, _P, _P,
-    ),
-    "ldk_band_sweep": (
-        _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
-        _I, _I, _P, _P, _P, _P, _P,
     ),
     "ldk_triangle": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P,

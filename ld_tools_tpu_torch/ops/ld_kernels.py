@@ -2,11 +2,12 @@
 
 Each wrapper launches its hand-written CUDA kernel for tensors on the
 card and runs its plain PyTorch version for tensors on the CPU; any other
-device raises.  The kernels: csrc/ld_block_sm90.cu (the int8 triangle K1
-with K8 and the packed sweep K4) and csrc/ld_count_sm90.cu (the count
-pass K5, K6) on the wgmma / TMA core of csrc/ld_sm90_core.cuh, and
-csrc/ld_kernels.cu (K1b, K2, K3) on the mma.sync core.  Nothing falls
-back: a CUDA tensor either goes through the kernel or the call raises.
+device raises.  The kernels: csrc/ld_block_sm90.cu (ld_block_kernel: the
+triangle K1 with K8 and its bf16 / tf32 forms K1b, the band sweeps K3
+and K4) and csrc/ld_count_sm90.cu (the count pass K5, K6) on the wgmma /
+TMA core of csrc/ld_sm90_core.cuh, and csrc/ld_kernels.cu (K2, the
+packed triangle) on the mma.sync core.  Nothing falls back: a CUDA
+tensor either goes through the kernel or the call raises.
 Every launching wrapper keeps an integer ``launches`` count, bumped only
 where it launches its kernel.
 
@@ -41,9 +42,13 @@ count pass, and each has a ``*_plain`` twin:
   ld_triangle_blocks          K1   _tri_kernel_dense, int8 (:259)
                                    (ld_block_kernel<FORM_S8, triangle>)
   ld_triangle_blocks_bf16     K1b  _tri_kernel_dense, bf16 dot (:292)
+                                   (ld_block_kernel<FORM_BF16, triangle>)
   ld_triangle_blocks_tf32     K1b  _tri_kernel_dense, f32 dot (:292)
+                                   (ld_block_kernel<FORM_TF32, triangle>)
   ld_triangle_blocks_packed   K2   _tri_kernel_packed (:303)
+                                   (ld_triangle_kernel<FORM_BITS>, mma.sync)
   ld_band_sweep_blocks        K3   _band_sweep_kernel, dense (:747)
+                                   (ld_block_kernel<FORM_S8, sweep>)
   ld_band_sweep_blocks_packed K4   _band_sweep_kernel, packed (:693)
                                    (ld_block_kernel<FORM_BITS, sweep>)
   ld_band_count               K5   _band_count_kernel, dense (:909)
@@ -163,8 +168,8 @@ def _check_matrix(g: torch.Tensor, name: str, packed: bool = False) -> None:
 
 
 def _check_grid(n_blocks: int, block_m: int, block_n: int) -> None:
-    """The mma.sync triangle and sweep kernels launch one thread block per
-    128 x 128 sub-tile: the grid must fit."""
+    """The mma.sync triangle (K2) launches one thread block per 128 x 128
+    sub-tile: the grid must fit."""
     n_sub = -(-block_m // 128) * -(-block_n // 128)
     if n_blocks * n_sub >= 2**31:
         raise ValueError(f"{n_blocks} blocks exceed one launch's grid")
@@ -565,8 +570,9 @@ def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
                      block_m, block_n, epilogue, want_dprime, out,
                      epilogues=("fast", "exact")):
     """Launch the triangle kernel of ``form`` over the blocks ``cij``
-    (FORM_S8: ld_block_kernel on the wgmma core; the other forms:
-    ld_triangle_kernel<form>); bumps ``site.launches``."""
+    (FORM_S8, FORM_BF16, FORM_TF32: ld_block_kernel on the wgmma core;
+    FORM_BITS: ld_triangle_kernel on the mma.sync core); bumps
+    ``site.launches``."""
     c1, ipq, cij = _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n,
                                   epilogue, want_dprime,
                                   form == _cuda_build.FORM_BITS, epilogues)
@@ -588,17 +594,19 @@ def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
                 cij.data_ptr(), cij.shape[0], v, w, block_m, block_n, n_f,
                 inv_n, EPILOGUES.index(epilogue), form)
         outs = (r2.data_ptr(), dp.data_ptr() if dp is not None else None)
-        if form == _cuda_build.FORM_S8:
-            # K1 / K8: the wgmma kernel, one persistent thread block per SM
+        if form == _cuda_build.FORM_BITS:
+            # K2: the mma.sync kernel, one thread block per sub-tile
+            _check_grid(cij.shape[0], block_m, block_n)
+            err = _launch("ldk_triangle", g_pad.device, *args, *outs)
+            kernel = "ld_triangle_kernel<FORM_BITS>"
+        else:
+            # K1 / K8, K1b: the wgmma kernel, one persistent thread block
+            # per SM
             _check_rows(g_pad, "g_pad")
             grid = _block_grid(cij.shape[0], block_m, block_n, g_pad.device)
             err = _launch("ldk_block_triangle", g_pad.device, *args, grid,
                           *outs)
-            kernel = "ld_block_kernel<FORM_S8, triangle>"
-        else:
-            _check_grid(cij.shape[0], block_m, block_n)
-            err = _launch("ldk_triangle", g_pad.device, *args, *outs)
-            kernel = f"ld_triangle_kernel (form {form})"
+            kernel = f"ld_block_kernel<form {form}, triangle>"
         _cuda_build.check(err, f"{kernel}, epilogue {epilogue}")
         site.launches += 1
     return r2, dp
@@ -649,10 +657,11 @@ def ld_triangle_blocks_bf16_plain(g_pad, c1, ipq, cij, n_haplotypes, *,
 def ld_triangle_blocks_bf16(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
                             block_n, epilogue="exact", want_dprime=True,
                             out=None):
-    """Launch site of ld_triangle_kernel<FORM_BF16> (K1b, the bf16 dot of
-    _tri_kernel_dense): :func:`ld_triangle_blocks` with the int8 rows
-    converted to bf16 in the kernel, bf16 tensor-core products summed in
-    f32.  Counts are exact, so r^2 / D' equal K1's bit for bit."""
+    """Launch site of ld_block_kernel<FORM_BF16, STORE_TRIANGLE> (K1b,
+    the bf16 dot of _tri_kernel_dense; csrc/ld_block_sm90.cu, wgmma):
+    :func:`ld_triangle_blocks` with the int8 rows read as they are and
+    widened to bf16 inside the kernel, bf16 tensor-core products summed
+    in f32.  Counts are exact, so r^2 / D' equal K1's bit for bit."""
     kw = dict(block_m=block_m, block_n=block_n, epilogue=epilogue,
               want_dprime=want_dprime)
     if not _on_card(g_pad, c1, ipq, cij):
@@ -679,10 +688,12 @@ def ld_triangle_blocks_tf32_plain(g_pad, c1, ipq, cij, n_haplotypes, *,
 def ld_triangle_blocks_tf32(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
                             block_n, epilogue="exact", want_dprime=True,
                             out=None):
-    """Launch site of ld_triangle_kernel<FORM_TF32> (K1b, the f32 dot of
-    _tri_kernel_dense): :func:`ld_triangle_blocks` with the int8 rows
-    converted to f32 in the kernel and multiplied on the TF32 tensor
-    cores (0/1 are exact in TF32), summed in f32."""
+    """Launch site of ld_block_kernel<FORM_TF32, STORE_TRIANGLE> (K1b,
+    the f32 dot of _tri_kernel_dense; csrc/ld_block_sm90.cu, wgmma):
+    :func:`ld_triangle_blocks` with the int8 rows read as they are,
+    widened to f32 inside the kernel and multiplied on the TF32 tensor
+    cores (int8 values are exact in TF32), summed in f32: K1's r^2 / D'
+    bit for bit."""
     kw = dict(block_m=block_m, block_n=block_n, epilogue=epilogue,
               want_dprime=want_dprime)
     if not _on_card(g_pad, c1, ipq, cij):
@@ -711,7 +722,8 @@ def ld_triangle_blocks_packed(gp_pad, c1, ipq, cij, n_haplotypes, *,
                               block_m, block_n, epilogue="exact",
                               want_dprime=True, out=None):
     """Launch site of ld_triangle_kernel<FORM_BITS> (K2,
-    _tri_kernel_packed): :func:`ld_triangle_blocks` over the store's
+    _tri_kernel_packed; csrc/ld_kernels.cu, the last kernel on the
+    mma.sync core): :func:`ld_triangle_blocks` over the store's
     bitpacked uint8 (V, W) rows, W bytes a multiple of 16, the bit-planes
     unpacked inside the kernel.  The same counts as K1 on the unpacked
     rows, so the same r^2 / D' bit for bit."""
@@ -819,10 +831,11 @@ def _band_sweep_plain(g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols,
 def _band_sweep_launch(site, form, g_rows, g_cols, c1_rows, c1_cols,
                        ipq_rows, ipq_cols, cij, n_haplotypes, *, outs, sel,
                        block_m, block_n):
-    """Launch the band sweep kernel of ``form`` over the blocks ``cij``
-    (FORM_BITS: ld_block_kernel on the wgmma core; FORM_S8:
-    ld_band_sweep_kernel); bumps ``site.launches``.  The outputs are
-    uninitialised: the kernels write every cell of every listed block."""
+    """Launch ld_block_kernel<form, STORE_SWEEP> (the wgmma core: FORM_S8
+    K3, FORM_BITS K4) over the blocks ``cij``, one persistent thread
+    block per SM; bumps ``site.launches``.  The outputs are
+    uninitialised: the kernel writes every cell of every listed block,
+    past the matrix edge too."""
     c1_rows, c1_cols, ipq_rows, ipq_cols, cij = _band_prep(
         g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij, outs,
         sel, form == _cuda_build.FORM_BITS)
@@ -840,19 +853,11 @@ def _band_sweep_launch(site, form, g_rows, g_cols, c1_rows, c1_cols,
             cij.data_ptr(), nb, g_rows.shape[0], g_cols.shape[0],
             g_rows.shape[1], block_m, block_n, n_f, inv_n, sel, form)
     outs = (ptr["cab"], ptr["r2"], ptr["dp"], ptr["meas"])
-    if form == _cuda_build.FORM_BITS:
-        # K4: the wgmma kernel, one persistent thread block per SM; it
-        # writes every cell of every block, past the matrix too
-        _check_rows(g_rows, "g_rows")
-        _check_rows(g_cols, "g_cols")
-        grid = _block_grid(nb, block_m, block_n, g_rows.device)
-        err = _launch("ldk_block_sweep", g_rows.device, *args, grid, *outs)
-        kernel = "ld_block_kernel<FORM_BITS, sweep>"
-    else:
-        _check_grid(nb, block_m, block_n)
-        err = _launch("ldk_band_sweep", g_rows.device, *args, *outs)
-        kernel = f"ld_band_sweep_kernel (form {form})"
-    _cuda_build.check(err, kernel)
+    _check_rows(g_rows, "g_rows")
+    _check_rows(g_cols, "g_cols")
+    grid = _block_grid(nb, block_m, block_n, g_rows.device)
+    err = _launch("ldk_block_sweep", g_rows.device, *args, grid, *outs)
+    _cuda_build.check(err, f"ld_block_kernel<form {form}, sweep>")
     site.launches += 1
     return out
 
@@ -879,7 +884,8 @@ def ld_band_sweep_blocks(
     ``g_rows`` against rows [bj*bn, (bj+1)*bn) of ``g_cols``; rows past
     a matrix read as zero (monomorphic padding).  ``outs`` is an ordered
     subset of ``BAND_OUT_DTYPES``.  This is the launch site of
-    ld_band_sweep_kernel (K3).
+    ld_block_kernel<FORM_S8, STORE_SWEEP> (K3, csrc/ld_block_sm90.cu,
+    wgmma), the dense branch of _band_sweep_kernel.
     """
     kw = dict(outs=outs, sel=sel, block_m=block_m, block_n=block_n)
     args = (g_rows, g_cols, c1_rows, c1_cols, ipq_rows, ipq_cols, cij)

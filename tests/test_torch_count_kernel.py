@@ -1,5 +1,7 @@
 """The host side of the CUDA kernels that a CPU run can check: the C ABI
-the ctypes bindings declare, and the count kernel's tile walk.
+the ctypes bindings declare, the tile walks of the count and block
+kernels, each form's stage of the wgmma core and which instance each
+launch site reaches.
 
 The kernels themselves run only on the card (chip_smoke.py holds each
 against its plain version there); their plain versions' parity with
@@ -13,6 +15,7 @@ import re
 
 import numpy as np
 import pytest
+import torch
 
 from ld_tools_tpu_torch.ops import _cuda_build
 from ld_tools_tpu_torch.ops import ld_kernels as lk
@@ -140,15 +143,18 @@ def _block_source_rule() -> tuple:
 
 
 def _block_tile_walk(cij, n_rows: int, block_m: int, block_n: int,
-                     store: str) -> dict:
+                     store: str, n_rows_b: int = None) -> dict:
     """The live tiles of ld_block_kernel's walk, decoded as its
     ``Walk<WALK_TRIANGLE | WALK_SWEEP, TN>::at`` decodes them, with the
     tile from the C sources' rule: {name: int64 array} with "t", "k",
     "row0"/"col0" (the tile's first matrix row/column), "lr0"/"lc0" (its
-    offset inside the block) and "rows"/"cols" (the cells it writes).  The
-    triangle writes the tile's cells inside the block and the matrix and
-    computes a tile only when it holds one; the sweep writes every cell of
-    the block, past the matrix too."""
+    offset inside the block), "rows"/"cols" (the cells it writes) and
+    "rows_in"/"cols_in" (its rows inside the rows' matrix, of n_rows, and
+    its columns inside the columns' matrix, of n_rows_b, n_rows unless
+    given: the rest read TMA's zeros and zero vectors).  The triangle
+    writes the tile's cells inside the block and the matrix and computes a
+    tile only when it holds one; the sweep writes every cell of the block,
+    past the matrices too."""
     tm, div, wide, narrow = _block_source_rule()
     tn = wide if block_n % div == 0 else narrow
     n_tm, n_tn = -(-block_m // tm), -(-block_n // tn)
@@ -161,6 +167,9 @@ def _block_tile_walk(cij, n_rows: int, block_m: int, block_n: int,
     col0 = (cij[k] & 0xFFFF) * block_n + lc0
     rows = np.minimum(tm, block_m - lr0)
     cols = np.minimum(tn, block_n - lc0)
+    rows_in = np.clip(n_rows - row0, 0, rows)
+    cols_in = np.clip((n_rows if n_rows_b is None else n_rows_b) - col0, 0,
+                      cols)
     if store == "triangle":
         rows = np.minimum(rows, n_rows - row0)
         cols = np.minimum(cols, n_rows - col0)
@@ -169,7 +178,8 @@ def _block_tile_walk(cij, n_rows: int, block_m: int, block_n: int,
         live = np.ones(t.size, dtype=bool)
     return {name: a[live] for name, a in (
         ("t", t), ("k", k), ("row0", row0), ("col0", col0), ("lr0", lr0),
-        ("lc0", lc0), ("rows", rows), ("cols", cols))}
+        ("lc0", lc0), ("rows", rows), ("cols", cols), ("rows_in", rows_in),
+        ("cols_in", cols_in))}
 
 
 def test_block_tile_rule_is_the_c_sources():
@@ -187,7 +197,7 @@ def test_block_tile_rule_is_the_c_sources():
         256, 320, 256, 256]
 
 
-@pytest.mark.parametrize("store", ["triangle", "sweep"])
+@pytest.mark.parametrize("store", ["triangle", "sweep", "sweep_two"])
 @pytest.mark.parametrize("block,n_rows", [
     (16, 16 * 9 + 5),
     (200, 200 * 4 + 37),
@@ -200,11 +210,14 @@ def test_block_tile_rule_is_the_c_sources():
 def test_block_tile_walk_writes_every_cell_once(block, n_rows, store):
     """At block sides the tile does and does not divide, with a ragged
     matrix edge, at the tile width the wrapper picks: the triangle
-    (K1 / K8) writes every cell of every listed block that lies inside the
-    matrix exactly once and none outside it, and computes no tile without
-    such a cell; the sweep (K4) writes every cell of every listed block
-    exactly once, past the matrix edge too.  The walk is as long as the
-    wrapper's block_tiles."""
+    (K1 / K8, K1b) writes every cell of every listed block that lies
+    inside the matrix exactly once and none outside it, and computes no
+    tile without such a cell; the sweep (K3, K4) writes every cell of every
+    listed block exactly once, past the matrix edge too.  The dense
+    sweep's two matrices (``sweep_two``: g_rows shorter than g_cols, as a
+    scan's shards or the grid sweep give it) leave the same walk, and a
+    cell reads real rows exactly when its row lies in g_rows and its
+    column in g_cols.  The walk is as long as the wrapper's block_tiles."""
     nb = -(-n_rows // block)
     rng = np.random.default_rng(block)
     if store == "triangle":
@@ -215,22 +228,131 @@ def test_block_tile_walk_writes_every_cell_once(block, n_rows, store):
     keep[bi == nb - 1] = True  # the ragged block row always
     bi, bj = bi[keep], bj[keep]
     cij = lk.pack_block_coords(bi, bj)
-    walk = _block_tile_walk(cij, n_rows, block, block, store)
+    # the sweep's rows from a matrix shorter than its columns' by a ragged
+    # count (both ragged against the block)
+    n_rows_a = n_rows - (block // 2 + 3) if store == "sweep_two" else n_rows
+    walk = _block_tile_walk(cij, n_rows_a, block, block,
+                            "triangle" if store == "triangle" else "sweep",
+                            n_rows_b=n_rows)
     n_tiles = lk.block_tiles(len(cij), block, block)
     assert walk["t"].size <= n_tiles and np.all(np.diff(walk["t"]) > 0)
-    if store == "sweep":
+    if store != "triangle":
         assert walk["t"].size == n_tiles
     hits = np.zeros((len(cij), block, block), dtype=np.int8)
-    for k, row0, col0, lr0, lc0, rows, cols in zip(
+    real = np.zeros_like(hits)
+    for k, row0, col0, lr0, lc0, rows, cols, rows_in, cols_in in zip(
             walk["k"], walk["row0"], walk["col0"], walk["lr0"], walk["lc0"],
-            walk["rows"], walk["cols"]):
+            walk["rows"], walk["cols"], walk["rows_in"], walk["cols_in"]):
         assert rows > 0 and cols > 0, "a live tile with nothing to write"
         assert (row0 - bi[k] * block, col0 - bj[k] * block) == (lr0, lc0)
         hits[k, lr0:lr0 + rows, lc0:lc0 + cols] += 1
+        real[k, lr0:lr0 + rows_in, lc0:lc0 + cols_in] += 1
+    rows = bi[:, None] * block + np.arange(block)[None, :]
+    cols = bj[:, None] * block + np.arange(block)[None, :]
+    inside = (rows < n_rows_a)[:, :, None] & (cols < n_rows)[:, None, :]
     if store == "triangle":
-        rows = bi[:, None] * block + np.arange(block)[None, :]
-        cols = bj[:, None] * block + np.arange(block)[None, :]
-        want = (rows < n_rows)[:, :, None] & (cols < n_rows)[:, None, :]
+        want = inside
     else:
         want = np.ones_like(hits, dtype=bool)
     np.testing.assert_array_equal(hits, want.astype(np.int8))
+    np.testing.assert_array_equal(real, inside.astype(np.int8))
+
+
+_FORMS = {"s8": "FORM_S8", "bf16": "FORM_BF16", "tf32": "FORM_TF32"}
+
+
+def _core_source() -> str:
+    with open(os.path.join(_cuda_build.CSRC, "ld_sm90_core.cuh")) as fh:
+        return fh.read()
+
+
+@pytest.mark.parametrize("n", [160, 128])
+@pytest.mark.parametrize("kind", sorted(_FORMS))
+def test_each_form_steps_k_by_one_swizzle_row_a_stage(kind, n):
+    """Every wgmma form of the core reads a ring stage of one 128-byte
+    swizzle row a row: KB / elem_bytes elements of K (128 s8, 64 bf16, 32
+    f32), consumed by KB / 32 wgmmas of 32 bytes of K each (k32 s8, k16
+    bf16, k8 tf32), so the descriptor's +2 (32 bytes) a k-step walks the
+    stage in every form.  Read from csrc/ld_sm90_core.cuh: KB, the
+    element sizes, each wgmma instruction's shape and operand types, and
+    the main loop's k-steps."""
+    src = _core_source()
+    kb = int(re.search(r"constexpr int KB = (\d+);", src)[1])
+    rule = re.search(r"elem_bytes\(int form\) \{\s*return form == FORM_BF16 "
+                     r"\? (\d+) : form == FORM_TF32 \? (\d+) : (\d+);", src)
+    elem = dict(zip(("bf16", "tf32", "s8"), (int(x) for x in rule.groups())))
+    assert kb == 128 and elem == {"s8": 1, "bf16": 2, "tf32": 4}
+    ((k, acc),) = set(re.findall(
+        rf'"m64n{n}k(\d+)\.(\w+)\.{kind}\.{kind}"', src))
+    assert int(k) * elem[kind] == 32
+    assert acc == ("s32" if kind == "s8" else "f32")
+    assert "for (int kk = 0; kk < KB / 32; ++kk)" in src
+    assert "da + 2 * kk, db0 + 2 * kk" in src
+    assert kb // elem[kind] == {"s8": 128, "bf16": 64, "tf32": 32}[kind]
+    # wgmma_half picks this instruction for the form (s8: the last branch)
+    head = rf"{_FORMS[kind]}\) \{{" if kind != "s8" else r"\} else \{"
+    sel = re.search(head + r"\s*if constexpr \(WIDE\) wgmma_m64n160k(\d+)"
+                    r"\(d, da, db, accumulate\);\s*else wgmma_m64n128k(\d+)",
+                    src)
+    assert sel and int(sel[1]) == int(sel[2]) == int(k)
+
+
+# launch site -> (the entry point it reaches on the card, the form it passes)
+_ROUTES = {
+    "ld_triangle_blocks": ("ldk_block_triangle", _cuda_build.FORM_S8),
+    "ld_stage_blocks": ("ldk_block_triangle", _cuda_build.FORM_S8),
+    "ld_triangle_blocks_bf16": ("ldk_block_triangle", _cuda_build.FORM_BF16),
+    "ld_triangle_blocks_tf32": ("ldk_block_triangle", _cuda_build.FORM_TF32),
+    "ld_triangle_blocks_packed": ("ldk_triangle", _cuda_build.FORM_BITS),
+    "ld_band_sweep_blocks": ("ldk_block_sweep", _cuda_build.FORM_S8),
+    "ld_band_sweep_blocks_packed": ("ldk_block_sweep", _cuda_build.FORM_BITS),
+}
+
+
+@pytest.mark.parametrize("site_name", sorted(_ROUTES))
+def test_each_site_launches_its_instance(site_name, monkeypatch):
+    """Through its public entry, each triangle and sweep site reaches the
+    library entry point of its instance with its form: K1 / K8 and the
+    bf16 and tf32 sites (K1b) ldk_block_triangle, the dense and packed
+    sweeps (K3, K4) ldk_block_sweep, each with the persistent grid
+    min(SMs, tiles); only the packed triangle (K2) reaches the mma.sync
+    ldk_triangle.  _launch, the card check and the SM count are faked."""
+    calls = []
+
+    def launch(entry, dev, *args):
+        calls.append((entry, args))
+        return 0
+
+    monkeypatch.setattr(lk, "_launch", launch)
+    monkeypatch.setattr(lk, "_on_card", lambda *tensors: True)
+    monkeypatch.setattr(lk, "_sm_count", lambda dev: 132)
+    lk.reset_launches()
+    site = getattr(lk, site_name)
+    entry, form = _ROUTES[site_name]
+    block, nb = 640, 3
+    dtype = torch.uint8 if form == _cuda_build.FORM_BITS else torch.int8
+    g = torch.zeros((2 * block, 32), dtype=dtype)
+    vec = torch.ones((2 * block,), dtype=torch.float32)
+    cij = torch.from_numpy(lk.pack_block_coords([0, 1, 1], [0, 0, 1]))
+    if site_name == "ld_stage_blocks":
+        site(g, vec, vec, cij, 16, block=block, stage="fast")
+    elif entry == "ldk_block_sweep":
+        site(g, g, vec, vec, vec, vec, cij, 16, outs=("cab", "r2"),
+             block_m=block, block_n=block)
+    else:
+        site(g, vec, vec, cij, 16, block_m=block, block_n=block,
+             epilogue="fast", want_dprime=False)
+    ((got_entry, args),) = calls
+    assert got_entry == entry
+    assert (entry == "ldk_triangle") == (site_name ==
+                                         "ld_triangle_blocks_packed")
+    # the prototype's arguments but the stream, which _launch appends
+    assert len(args) == len(_cuda_build._SIGNATURES[entry]) - 1
+    at_form = 16 if entry == "ldk_block_sweep" else 12
+    assert args[at_form] == form
+    if entry != "ldk_triangle":
+        assert args[at_form + 1] == min(132, lk.block_tiles(nb, block, block))
+    assert site.launches == 1
+    assert {f.__name__ for f in lk.LAUNCH_SITES} == set(_ROUTES) | {
+        "ld_band_count", "ld_band_count_packed", "ld_band_count_sharded"}
+    lk.reset_launches()

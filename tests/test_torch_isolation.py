@@ -218,10 +218,22 @@ class _FakeCudaDevice:
         _FakeCudaDevice.current = None
 
 
-@pytest.mark.parametrize("entry", ["ldk_band_count", "ldk_band_sweep",
-                                   "ldk_triangle", "ldk_block_triangle",
-                                   "ldk_block_sweep"])
-def test_launches_make_the_tensor_device_current(entry, monkeypatch):
+# every launch site and the entry point it calls: (site name, entry, form)
+_SITE_ENTRIES = {
+    "K5": ("ld_band_count", "ldk_band_count", "FORM_S8"),
+    "K1": ("ld_triangle_blocks", "ldk_block_triangle", "FORM_S8"),
+    "K1b-bf16": ("ld_triangle_blocks_bf16", "ldk_block_triangle",
+                 "FORM_BF16"),
+    "K1b-tf32": ("ld_triangle_blocks_tf32", "ldk_block_triangle",
+                 "FORM_TF32"),
+    "K2": ("ld_triangle_blocks_packed", "ldk_triangle", "FORM_BITS"),
+    "K3": ("ld_band_sweep_blocks", "ldk_block_sweep", "FORM_S8"),
+    "K4": ("ld_band_sweep_blocks_packed", "ldk_block_sweep", "FORM_BITS"),
+}
+
+
+@pytest.mark.parametrize("kernel", sorted(_SITE_ENTRIES))
+def test_launches_make_the_tensor_device_current(kernel, monkeypatch):
     """Every launch selects its tensors' card before the library call and
     passes that card's stream: with a (faked) second card, cuda:1 is
     current inside the call and the stream comes from cuda:1."""
@@ -248,39 +260,32 @@ def test_launches_make_the_tensor_device_current(entry, monkeypatch):
     monkeypatch.setattr(torch.cuda, "device", _FakeCudaDevice)
     monkeypatch.setattr(torch.cuda, "current_stream", current_stream)
     monkeypatch.setattr(lk, "_sm_count", lambda dev: 132)  # an H100's
+    site_name, entry, form_name = _SITE_ENTRIES[kernel]
+    site, form = getattr(lk, site_name), getattr(_cuda_build, form_name)
     card1 = torch.device("cuda", 1)
     assert lk._launch(entry, card1, 7, 8) == 0
     assert seen == [(entry, card1, 1001)]
     # the launch sites hand the library call their tensors' device (CPU
     # tensors stand in for the card's here; the guard sees their device)
     seen.clear()
-    g = torch.zeros((32, 16), dtype=torch.int8)
+    dtype = torch.uint8 if form == _cuda_build.FORM_BITS else torch.int8
+    g = torch.zeros((32, 16), dtype=dtype)
     vec = torch.zeros((32,), dtype=torch.float32)
     cij = torch.zeros((1,), dtype=torch.int32)
     if entry == "ldk_band_count":
-        lk._count_launch(lk.ld_band_count, _cuda_build.FORM_S8, g, vec, vec,
-                         vec.to(torch.int32), cij, 16, 0, 0.5, sel=0,
-                         exact_mask=True, use_dist=False, block_m=16,
-                         block_n=16)
-    elif entry == "ldk_band_sweep":  # K3: the dense form
-        lk._band_sweep_launch(lk.ld_band_sweep_blocks, _cuda_build.FORM_S8,
-                              g, g, vec, vec, vec, vec, cij, 16,
+        lk._count_launch(site, form, g, vec, vec, vec.to(torch.int32), cij,
+                         16, 0, 0.5, sel=0, exact_mask=True, use_dist=False,
+                         block_m=16, block_n=16)
+    elif entry == "ldk_block_sweep":
+        lk._band_sweep_launch(site, form, g, g, vec, vec, vec, vec, cij, 16,
                               outs=("cab",), sel=0, block_m=16, block_n=16)
-    elif entry == "ldk_block_sweep":  # K4: the packed form
-        lk._band_sweep_launch(lk.ld_band_sweep_blocks_packed,
-                              _cuda_build.FORM_BITS, g.to(torch.uint8),
-                              g.to(torch.uint8), vec, vec, vec, vec, cij, 16,
-                              outs=("cab",), sel=0, block_m=16, block_n=16)
-    elif entry == "ldk_triangle":  # K1b: a form left on the mma.sync core
-        lk._triangle_launch(lk.ld_triangle_blocks_bf16, _cuda_build.FORM_BF16,
-                            g, vec, vec, cij, 16, block_m=16, block_n=16,
-                            epilogue="fast", want_dprime=False, out=None)
-    else:  # K1: the int8 form
-        lk._triangle_launch(lk.ld_triangle_blocks, _cuda_build.FORM_S8, g,
-                            vec, vec, cij, 16, block_m=16, block_n=16,
-                            epilogue="fast", want_dprime=False, out=None)
+    else:
+        lk._triangle_launch(site, form, g, vec, vec, cij, 16, block_m=16,
+                            block_n=16, epilogue="fast", want_dprime=False,
+                            out=None)
     assert [(name, dev) for name, dev, _ in seen] == [
         (entry, torch.device("cpu"))]
+    assert site.launches == 1
     lk.reset_launches()
 
 
@@ -353,30 +358,32 @@ def test_count_launch_passes_the_persistent_grid(n_blocks, block, grid,
     (3, 512, 24),       # 4 x 2 tiles of 128 x 256 a block
     (3, 1000, 96),      # 8 x 4 tiles of 128 x 256 a block
 ])
-@pytest.mark.parametrize("entry", ["ldk_block_triangle", "ldk_block_sweep"])
-def test_block_launch_passes_the_persistent_grid(entry, n_blocks, block, grid,
-                                                 monkeypatch):
-    """ld_block_kernel (K1 / K8, K4) walks blocks x 128 x block_tile_n
-    tiles in min(SMs, tiles) persistent thread blocks: the launch hands
-    the library every argument of its prototype, the grid among them,
-    and bumps the site's count once."""
+@pytest.mark.parametrize("kernel", ["K1", "K1b-bf16", "K1b-tf32", "K3",
+                                    "K4"])
+def test_block_launch_passes_the_persistent_grid(kernel, n_blocks, block,
+                                                 grid, monkeypatch):
+    """ld_block_kernel (K1 / K8 and K1b: the triangle; K3, K4: the sweep)
+    walks blocks x 128 x block_tile_n tiles in min(SMs, tiles) persistent
+    thread blocks: the launch hands the library every argument of its
+    prototype, the form and the grid among them, and bumps the site's
+    count once."""
     from ld_tools_tpu_torch.ops import _cuda_build
     from ld_tools_tpu_torch.ops import ld_kernels as lk
 
     calls = _fake_count_lib(monkeypatch)
     lk.reset_launches()
+    site_name, entry, form_name = _SITE_ENTRIES[kernel]
+    site, form = getattr(lk, site_name), getattr(_cuda_build, form_name)
+    dtype = torch.uint8 if form == _cuda_build.FORM_BITS else torch.int8
+    g = torch.zeros((40, 32), dtype=dtype)
     vec = torch.zeros((40,), dtype=torch.float32)
     cij = torch.zeros((n_blocks,), dtype=torch.int32)
     if entry == "ldk_block_triangle":
-        g = torch.zeros((40, 32), dtype=torch.int8)
-        site, form = lk.ld_triangle_blocks, _cuda_build.FORM_S8
         lk._triangle_launch(site, form, g, vec, vec, cij, 16,
                             block_m=block, block_n=block, epilogue="exact",
                             want_dprime=True, out=None)
         at_grid, at_form = 13, 12
     else:
-        g = torch.zeros((40, 32), dtype=torch.uint8)
-        site, form = lk.ld_band_sweep_blocks_packed, _cuda_build.FORM_BITS
         lk._band_sweep_launch(site, form, g, g, vec, vec,
                               vec, vec, cij, 16, outs=("cab", "meas"), sel=1,
                               block_m=block, block_n=block)
