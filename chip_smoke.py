@@ -9,18 +9,19 @@ Phases, each of which exits non-zero on any failure:
 2. build    nvcc compiles every csrc/*.cu for sm_90a (every instance) and
             prints ptxas's registers, shared memory and spills; cuobjdump
             -sass must show warpgroup MMAs (GMMA) and no IMMA or HMMA
-            (mma.sync) in every wgmma instance: both of the count kernel
-            (K5, K6) and the ten of the block kernel (K1 / K8, K1b in bf16
-            and in tf32, K3 and K4, each at tiles 320 and 256 wide);
+            (warp-level MMAs) in every wgmma instance: both of the count
+            kernel (K5, K6) and the twelve of the block kernel (K1 / K8,
+            K2, K1b in bf16 and in tf32, K3 and K4, each at tiles 320 and
+            256 wide);
 3. kernels  each kernel against its plain PyTorch version on the card, at
             the shapes the scan and the headline sweep give it (640-row
             blocks, W = 5,120 int8 haplotypes or 640 packed bytes, a ragged
             row count, monomorphic rows): the block kernel's triangle on
             int8 rows (K1) and in bf16 and tf32 (K1b), bit for bit, also
             at blocks of 200, 512, 1,000 and 1,024, K1b also at widths of
-            16 and 5,008 haplotypes and on signed int8 rows; the mma.sync
-            triangle on the packed bytes
-            (K2); the block kernel's band sweeps, dense (K3) and packed
+            16 and 5,008 haplotypes and on signed int8 rows; its triangle
+            on the packed bytes (K2), bit for bit, at the same blocks; the
+            block kernel's band sweeps, dense (K3) and packed
             (K4), bit for bit, also at blocks of 1,000 and with rows and
             columns from matrices of different row counts; the fused count
             pass (K5) and its bit-plane form (K6), in both mask modes, both
@@ -48,6 +49,13 @@ Phases, each of which exits non-zero on any failure:
             f64 recount of sampled hits and pairs.  K4's launches in that
             run are recorded and timed inside it, then replayed beside
             their plain versions and torch._int_mm;
+   area     ld_area (``ld_tools_tpu_torch.ld_area.main``) on the chr21
+            store: 1,000 query rsIDs (every 100th row) in 4 source files,
+            -p 4 (four threads issue the engine's counts at once), the
+            defaults (flank 100 kb, r^2 >= 0.8, TSV); the engine's launch
+            count must rise (its counts ran on the card: torch._int_mm in
+            ops/engine.py) and sampled queries' files must equal a
+            recount with the port's plain versions;
    sharded  K7 (``ld_band_count_sharded``: K5's or K6's kernel once per
             shard, each shard on its own stream) over [cuda:0] * 4 against
             its plain version on the ragged rows (both forms, with and
@@ -63,26 +71,37 @@ Phases, each of which exits non-zero on any failure:
             at 10,240 x 5,008 over [cuda:0] * 4, each equal to the
             one-device sweep, its r^2 within 2e-5 of the f64 finish at
             4,000 sampled pairs and of K1's exact r^2;
+   mixed    ld_scan on a chrX store of the chr21 row count (102,400
+            variants x 2,504 samples, males haploid outside the PAR bands:
+            three ploidy segments) with -w 1000000 in both resident
+            layouts: K5/K3 (int8) or K6/K4 (packed) on the segments, the
+            engine on the cross-segment rectangles, the same TSV bytes,
+            sampled hits inside and across the segments and pairs across
+            the boundaries against a recount on the card;
 5. parity   a 10,240-variant store: the -E cuda TSVs of both layouts must
             be byte-identical to the -E torch TSV (plain versions, CPU);
+            so must ld_area's files in each file type, the scan of a
+            10,240-variant chrX store, and ld_lite on an autosome pair
+            and a chrX pair across the PAR boundary (its table where
+            tabulate is installed, else its values);
 6. bench    the port's measurement entry points, each as ``python -m``
             must exit 0: the headline sweep (``ld_tools_tpu_torch.bench``,
             one JSON line with bench.py's metric and keys), the K8 stage
             split (``bench.microkernels``: K8's launches on its path), the
             fast triangle variants (``bench.kernels --only fast``) and
-            suite config 5 with its artifact.  Each reports its own launch
+            suite configs 5, 1 (ld_lite) and 3 (ld_area: its counts on
+            the card) with their artifact.  Each reports its own launch
             counts, and each must have launched its kernels and no other.
 
 K8 (the staged triangle kernel, ``ld_stage_blocks``: K1's kernel at four
 epilogues) is held against its plain version bit for bit at every stage
 in phase 3, at V = 10,240 with 512-row blocks and on the ragged rows, and
-timed there (the stage split).  So are K1 and K1b at the 512- and
-1,024-row blocks and K2 at the 1,024-row blocks that ``bench.kernels
---only fast`` launches, and K1 and K1b at 200- and 1,000-row blocks,
-which their tile does not divide.
+timed there (the stage split).  So are K1, K1b and K2 at the 512- and
+1,024-row blocks that ``bench.kernels --only fast`` launches, and at
+200- and 1,000-row blocks, which their tile does not divide.
 
 It ends with a JSON line of the build time, the scans' phases and launch
-counts and the headline record, a ``kernels`` JSON line, the nvidia-smi
+counts, ld_area's and the chrX scan's phases and the headline record, a ``kernels`` JSON line, the nvidia-smi
 line and, last, the device JSON line.  It needs the repository around it and a CUDA card.
 """
 
@@ -122,28 +141,26 @@ N_TRIANGLE = 10_240  # the headline triangle sweep of bench.py
 N_RAGGED = 10_000    # the ragged check slice: its last block is partial
 N_PARITY = 10_240    # the -E cuda / -E torch store
 LIMIT = "TPU_LD_DENSE_RESIDENT_BYTES"
-SOURCE = "ld_tools_tpu_torch/csrc/ld_kernels.cu"  # K2 (mma.sync)
 COUNT_SOURCE = "ld_tools_tpu_torch/csrc/ld_count_sm90.cu"  # K5, K6 (K7)
-BLOCK_SOURCE = "ld_tools_tpu_torch/csrc/ld_block_sm90.cu"  # K1, K8, K1b, K3, K4
+# K1, K8, K2, K1b, K3, K4
+BLOCK_SOURCE = "ld_tools_tpu_torch/csrc/ld_block_sm90.cu"
 # the wgmma instances of ld_block_sm90.cu (K8: K1's at four epilogues)
 K1 = "ld_block_kernel<FORM_S8,STORE_TRIANGLE>"
 K1B_BF16 = "ld_block_kernel<FORM_BF16,STORE_TRIANGLE>"
 K1B_TF32 = "ld_block_kernel<FORM_TF32,STORE_TRIANGLE>"
 K3 = "ld_block_kernel<FORM_S8,STORE_SWEEP>"
 K4 = "ld_block_kernel<FORM_BITS,STORE_SWEEP>"
-# the mma.sync triangle of ld_kernels.cu
-K2 = "ld_triangle_kernel<FORM_BITS>"
+K2 = "ld_block_kernel<FORM_BITS,STORE_TRIANGLE>"
 PALLAS = "ld_tools_tpu/ops/ld_pallas.py"
 # K8's stages (ops/ld_kernels.STAGES) and block (bench_microkernels.py's)
 STAGES = ("counts", "scale", "fast", "exact")
 STAGE_BLOCK = 512
-# the triangle routes beside the 640-row blocks: K1 and K1b at the blocks
-# ``bench.kernels --only fast`` launches (512, 1,024) and at sides their
-# tile does not divide (200, 1,000: 128-row tiles, 256 columns wide), K2
-# at 1,024 (its bench block)
+# the triangle routes beside the 640-row blocks: K1, K1b and K2 at the
+# blocks ``bench.kernels --only fast`` launches (512, 1,024) and at sides
+# their tile does not divide (200, 1,000: 128-row tiles, 256 columns wide)
 UNTIDY_BLOCKS = (200, UNTIDY_BLOCK)
-OTHER_BLOCKS = tuple((name, block) for name in (K1, K1B_BF16, K1B_TF32)
-                     for block in (512, 1024) + UNTIDY_BLOCKS) + ((K2, 1024),)
+OTHER_BLOCKS = tuple((name, block) for name in (K1, K1B_BF16, K1B_TF32, K2)
+                     for block in (512, 1024) + UNTIDY_BLOCKS)
 # K1b at widths of the haplotype axis that its stage (64 bf16 or 32 f32
 # haplotypes) does not divide: one 16-byte chunk, and the panel's 5,008
 K1B_WIDTHS = (16, N_HAP)
@@ -290,12 +307,21 @@ def scan_dataset(v, seed, run=64):
     return gp, pos
 
 
-def write_store(d, chrom, gp, pos, seed):
+def store_panel(seed):
+    """The sample panel of a store written with ``seed``: N_HAP / 2
+    samples (name, population, superpopulation, gender)."""
+    from ld_tools_tpu_torch.ingest import synth
+
+    return synth.make_panel(N_HAP // 2, np.random.default_rng(seed))
+
+
+def write_store(d, chrom, gp, pos, seed, pgroup=None, ploidy_profiles=None):
     """A prepared-looking data directory: samples.txt + the packed store
-    (the port's ingest copies), so prep builds conversion.db offline."""
+    (the port's ingest copies), so prep builds conversion.db offline.
+    ``pgroup`` and ``ploidy_profiles`` make a mixed-ploidy chromosome."""
     from ld_tools_tpu_torch.ingest import pack, synth
 
-    panel = synth.make_panel(N_HAP // 2, np.random.default_rng(seed))
+    panel = store_panel(seed)
     os.makedirs(d, exist_ok=True)
     synth.write_panel(os.path.join(d, "samples.txt"), panel)
     v = gp.shape[0]
@@ -303,8 +329,49 @@ def write_store(d, chrom, gp, pos, seed):
         d, chrom, pos=pos, rsid=[f"rs{100_000 + i}" for i in range(v)],
         ref=["A"] * v, alt=["G"] * v, vt=["SNP"] * v,
         samples=[row[0] for row in panel], genotypes_packed=gp,
-        n_haplotypes=N_HAP,
+        n_haplotypes=N_HAP, pgroup=pgroup, ploidy_profiles=ploidy_profiles,
     )
+
+
+def rsid_of(row):
+    """The rsID :func:`write_store` gives a row."""
+    return f"rs{100_000 + int(row)}"
+
+
+def chrx_bounds(v):
+    """The rows [lo, hi) outside the PAR bands of a chrX store of ``v``
+    rows (ingest/synth.make_chrx_layout's bounds 0.25 and 0.75, moved by
+    half a run of 64 so that a run of correlated rows straddles each
+    segment boundary)."""
+    return v // 4 + 32, 3 * v // 4 + 32
+
+
+def chrx_dataset(v, seed):
+    """A chrX-like store after ingest/synth.make_chrx_layout: the rows of
+    :func:`scan_dataset` with every male haploid outside the PAR bands
+    (:func:`chrx_bounds`; his second haplotype column zeroed), as ploidy
+    profile 1 (profile 0: all diploid).  The reference pairs a PAR row's
+    list with a non-PAR row's by zip truncation (calc_ld.py:30-33), so
+    the haploid half of each straddling run carries, in its profile's
+    columns, the leading alleles of the neighbouring diploid row: those
+    pairs are in LD across the boundary.  Returns (gp, pos, pgroup,
+    ploidy_profiles)."""
+    gp, pos = scan_dataset(v, seed)
+    male = np.array([row[3] == "male" for row in store_panel(seed)])
+    lo, hi = chrx_bounds(v)
+    profiles = np.full((2, N_HAP // 2), 2, dtype=np.uint8)
+    profiles[1, male] = 1
+    pgroup = np.zeros(v, dtype=np.int16)
+    pgroup[lo:hi] = 1
+    live = np.ones(N_HAP, dtype=bool)
+    live[2 * np.flatnonzero(male) + 1] = False
+    gp[lo:hi] &= np.packbits(live.astype(np.uint8))
+    cols = np.flatnonzero(live)
+    for rows, src in ((range(lo, lo + 32), lo - 1), (range(hi - 32, hi), hi)):
+        full = np.zeros(N_HAP, dtype=np.uint8)
+        full[cols] = np.unpackbits(gp[src], count=N_HAP)[:cols.size]
+        gp[list(rows)] = np.packbits(full)
+    return gp, pos, pgroup, profiles
 
 
 def read_tsv(path, pos):
@@ -398,26 +465,28 @@ def _cuobjdump():
 
 
 # the wgmma instances (template arguments: form, and for ld_block_kernel
-# the store and the tile width): K5, K6; K1 / K8, K3, K4, K1b bf16 and
+# the store and the tile width): K5, K6; K1 / K8, K2, K3, K4, K1b bf16 and
 # K1b tf32 at both widths
 WGMMA_INSTANCES = (
     "ld_band_count_kernel<0>", "ld_band_count_kernel<1>",
     "ld_block_kernel<0,0,320>", "ld_block_kernel<0,0,256>",
+    "ld_block_kernel<1,0,320>", "ld_block_kernel<1,0,256>",
     "ld_block_kernel<0,1,320>", "ld_block_kernel<0,1,256>",
     "ld_block_kernel<1,1,320>", "ld_block_kernel<1,1,256>",
     "ld_block_kernel<2,0,320>", "ld_block_kernel<2,0,256>",
     "ld_block_kernel<3,0,320>", "ld_block_kernel<3,0,256>",
 )
 # the SASS of the tensor-core paths: warpgroup MMAs (IGMMA, HGMMA) and
-# mma.sync's integer and float MMAs
+# the warp-level integer and float MMAs
 SASS_MMA = ("GMMA", "IMMA", "HMMA")
 
 
 def check_wgmma_sass(lib):
     """Every instance of the count kernel (K5 <0>, K6 <1>) and of the
-    block kernel (K1 / K8 <0,0,TN>, K3 <0,1,TN>, K4 <1,1,TN>, K1b
-    <2,0,TN> and <3,0,TN>) runs warpgroup MMAs: its SASS holds GMMA
-    instructions and no IMMA or HMMA (mma.sync, s8 or bf16 / tf32)."""
+    block kernel (K1 / K8 <0,0,TN>, K2 <1,0,TN>, K3 <0,1,TN>, K4
+    <1,1,TN>, K1b <2,0,TN> and <3,0,TN>) runs warpgroup MMAs: its SASS
+    holds GMMA instructions and no IMMA or HMMA (warp-level MMAs, s8 or
+    bf16 / tf32)."""
     sass = subprocess.run([_cuobjdump(), "-sass", lib], capture_output=True,
                           text=True, timeout=300, check=True).stdout
     ops, fn = {}, None
@@ -480,10 +549,10 @@ def _triangle_routes():
 
 def _check_triangle(name, g, gq, c1, ipq, cij, what, block=BLOCK):
     """A triangle route against its plain version on the ``block``-row
-    blocks ``cij``, fast and exact epilogues, D' on and off (the wgmma
-    routes, K1 and K1b, bit for bit; K2 within 1e-6), and against K1 (its
-    int8 twin) bit for bit; the largest abs error against the plain
-    version.  ``g`` holds the int8 rows, ``gq`` the same rows packed."""
+    blocks ``cij``, fast and exact epilogues, D' on and off, and against
+    K1 (its int8 twin), each bit for bit; the largest abs error against
+    the plain version.  ``g`` holds the int8 rows, ``gq`` the same rows
+    packed."""
     import torch
 
     from ld_tools_tpu_torch.ops import ld_kernels as lk
@@ -507,7 +576,7 @@ def _check_triangle(name, g, gq, c1, ipq, cij, what, block=BLOCK):
             err = max(err, e)
             tag = f"{name} {what} block {block} {epi}/dp={want_dp}"
             check(e <= 1e-6, f"{tag}: max abs err {e}")
-            check(name == K2 or torch.equal(a, b),
+            check(torch.equal(a, b),
                   f"{tag}: differs from the plain version in "
                   f"{int((a != b).sum())} cells")
             check(torch.equal(a, t), f"{tag}: differs from K1")
@@ -644,8 +713,8 @@ def phase_triangles(results, g1, gq1):
         cij = torch.from_numpy(lk.pack_block_coords(bi, bj)).to(dev)
         e = _check_triangle(name, g1, gq1, c1, ipq, cij, f"V={v1}", block)
         results[name]["max_abs_err"] = max(results[name]["max_abs_err"], e)
-    log(f"K1 and K1b at blocks 512, 1024, {UNTIDY_BLOCKS}, K2 at 1024: "
-        f"equal the plain versions and K1 (V={v1})")
+    log(f"K1, K1b and K2 at blocks 512, 1024, {UNTIDY_BLOCKS}: equal the "
+        f"plain versions and K1 (V={v1})")
     check_k1b_widths(g1[:N_RAGGED])
     torch.cuda.empty_cache()
 
@@ -1109,13 +1178,15 @@ def time_scan_sweeps(site, calls, results):
         f"share {b[0] / ms:.3f}, torch._int_mm {mm:.3f} ms ({nb} calls)")
 
 
-def _run_scan(data_dir, out_dir, extra=()):
+def _run_scan(data_dir, out_dir, extra=(), chrom="21"):
     from ld_tools_tpu_torch import ld_scan
+    from ld_tools_tpu_torch.ops import engine
     from ld_tools_tpu_torch.ops import ld_kernels as lk
 
-    argv = ["-C", "21", "-D", data_dir, "-t", out_dir, "-z", "0.8",
+    argv = ["-C", chrom, "-D", data_dir, "-t", out_dir, "-z", "0.8",
             "-E", "cuda", *extra]
     lk.reset_launches()
+    engine.reset_launches()
     t0 = time.perf_counter()
     (report,) = ld_scan.main(argv)
     secs = time.perf_counter() - t0
@@ -1621,6 +1692,271 @@ def phase_sharded(work, stores, gp, pos, results):
     return summary
 
 
+# ---- the engine's tools: ld_area and the mixed-ploidy scan ----------------
+
+AREA_FILES = 4        # ld_area's source files, run on -p 4 threads
+AREA_QUERIES = 1000   # every 100th row of the chr21 store
+AREA_FLANK = 100_000  # ld_area's default flank
+
+
+def _area_sources(src, v, n_queries, n_files):
+    """``n_queries`` query rsIDs (every 100th row of a store of ``v``
+    rows) split into ``n_files`` contiguous source files; their rows."""
+    rows = np.arange(0, v, 100)[:n_queries]
+    os.makedirs(src, exist_ok=True)
+    for k, part in enumerate(np.array_split(rows, n_files)):
+        with open(os.path.join(src, f"q{k}.txt"), "w") as fh:
+            fh.write("\n".join(rsid_of(r) for r in part) + "\n")
+    return rows
+
+
+def _tree(top):
+    """{relative path: bytes} of every file under ``top``."""
+    out = {}
+    for dirpath, _, files in os.walk(top):
+        for name in files:
+            path = os.path.join(dirpath, name)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, top)] = fh.read()
+    return out
+
+
+def _check_area_files(out, gp, pos, rows, seed):
+    """Sampled queries' files against a recount of each query's window
+    with the port's plain versions (the engine's counts on the CPU, the
+    f64 finish): the opponents with rounded r^2 >= 0.8 and their r^2 and
+    D' strings, or no file where there are none."""
+    from ld_tools_tpu_torch.ops import engine
+    from ld_tools_tpu_torch.ops.exact import (exact_ld_from_counts,
+                                              format_rounded, round4)
+
+    rng = np.random.default_rng(seed)
+    files = np.array_split(rows, AREA_FILES)
+    n_checked = n_hits = 0
+    for k, part in enumerate(files):
+        for r in rng.choice(part, size=6, replace=False):
+            q_pos = int(pos[r])
+            start = int(np.searchsorted(pos, max(q_pos - AREA_FLANK, 0),
+                                        side="right"))
+            stop = int(np.searchsorted(pos, q_pos + AREA_FLANK,
+                                       side="right"))
+            opp = np.array([o for o in range(start, stop) if o != r])
+            A = np.unpackbits(gp[[r]], axis=1, count=N_HAP).astype(np.int8)
+            B = np.unpackbits(gp[opp], axis=1, count=N_HAP).astype(np.int8)
+            c_ab, c1, c2 = engine.pair_counts(A, B, device="cpu")
+            ex = exact_ld_from_counts(c_ab, c1, c2, N_HAP)
+            r2 = ex.r_square[0]
+            r2_round = round4(r2)
+            r2_round[ex.r_square_is_int_zero[0]] = 0.0
+            keep = r2_round >= 0.8
+            want = {rsid_of(o): (a, b) for o, a, b in zip(
+                opp[keep],
+                format_rounded(r2[keep], ex.r_square_is_int_zero[0][keep]),
+                format_rounded(ex.d_prime[0][keep],
+                               ex.d_prime_is_int_zero[0][keep]))}
+            path = os.path.join(out, f"q{k}_in_LD", "21",
+                                f"{rsid_of(r)}_chr21_r_0.8.tsv")
+            if not want:
+                check(not os.path.exists(path), f"ld_area: {path} has no "
+                      "hits in the recount but was written")
+                continue
+            with open(path) as fh:
+                lines = fh.read().splitlines()
+            check(lines[2].split("\t")[1] == rsid_of(r),
+                  f"ld_area: {path}: query row {lines[2]!r}")
+            got = {f[1]: (f[6], f[7])
+                   for f in (ln.split("\t") for ln in lines[3:])}
+            check(got == want, f"ld_area: {path}: {len(got)} opponents, the "
+                  f"recount has {len(want)} (or their values differ)")
+            n_checked += 1
+            n_hits += len(want)
+    check(n_checked > 0, "ld_area: no sampled query has hits")
+    return n_checked, n_hits
+
+
+def phase_area(work, data, gp, pos):
+    """ld_area at chr21 scale: 1,000 queries over 4 source files on the
+    chr21 store, -p 4 (four threads issue the engine's counts at once),
+    the defaults (flank 100 kb, r^2 >= 0.8, TSV).  The engine's count
+    jobs must have run on the card (its launch count read around the
+    run), no kernel of ops/ld_kernels launched, and sampled queries'
+    files must equal a recount."""
+    from ld_tools_tpu_torch import ld_area
+    from ld_tools_tpu_torch.ops import engine
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    src = os.path.join(work, "area_src")
+    out = os.path.join(work, "area_out")
+    rows = _area_sources(src, gp.shape[0], AREA_QUERIES, AREA_FILES)
+    lk.reset_launches()
+    engine.reset_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    n_files = ld_area.main(["-S", src, "-D", data, "-t", out, "-p",
+                            str(AREA_FILES), "-E", "cuda"], stats)
+    wall = time.perf_counter() - t0
+    launches = engine.count_on_device.launches
+    kernels = sum(_launches().values())
+    check(launches > 0, "ld_area never counted on the card")
+    check(kernels == 0, f"ld_area launched {kernels} kernels")
+    check(n_files > 0, "ld_area wrote no file")
+    n_checked, n_hits = _check_area_files(out, gp, pos, rows, seed=8)
+    log(f"ld_area (chr21, {len(rows)} queries in {AREA_FILES} files, -p "
+        f"{AREA_FILES}): {n_files} files in {wall:.2f}s; groups "
+        f"{stats['groups']}, engine launches {launches}; count: dispatch "
+        f"{stats['dispatch_s']:.3f}s + wait {stats['count_wait_s']:.3f}s, "
+        f"finish {stats['finish_s']:.3f}s, write {stats['write_s']:.3f}s "
+        "(summed over the threads)")
+    log(f"ld_area check: {n_checked} sampled queries' files ({n_hits} "
+        "opponents) equal the recount")
+    shutil.rmtree(out, ignore_errors=True)
+    return dict(wall_s=wall, files=n_files, engine_launches=launches,
+                **stats)
+
+
+def _recount_mixed(gp, pgroup, cols, i, j):
+    """Exact r^2 / D' strings and rounded r^2 of the pairs (i, j) of a
+    mixed-ploidy store, from counts by the plain version on the card:
+    each row's alleles in its profile's live columns ``cols[profile]``
+    (the cohort's, sample-major, the second haplotype where diploid), the
+    pair's lists cut to the shorter one and each side's alt count over
+    its own list (calc_ld.py:30-44), then the port's f64 finish."""
+    import torch
+
+    from ld_tools_tpu_torch.ops.exact import (exact_ld_elementwise,
+                                              format_rounded, round4)
+
+    r2s = np.empty(len(i), dtype=object)
+    dps = np.empty(len(i), dtype=object)
+    r2r = np.empty(len(i))
+    for ga in range(len(cols)):
+        for gb in range(len(cols)):
+            at = np.flatnonzero((pgroup[i] == ga) & (pgroup[j] == gb))
+            if not at.size:
+                continue
+            A = np.unpackbits(gp[i[at]], axis=1, count=N_HAP)[:, cols[ga]]
+            B = np.unpackbits(gp[j[at]], axis=1, count=N_HAP)[:, cols[gb]]
+            m = min(A.shape[1], B.shape[1])
+            ta = torch.from_numpy(A[:, :m]).to("cuda", torch.int32)
+            tb = torch.from_numpy(B[:, :m]).to("cuda", torch.int32)
+            cab = (ta * tb).sum(dim=1).cpu().numpy()
+            ex = exact_ld_elementwise(cab, A.sum(axis=1), B.sum(axis=1), m,
+                                      len1=A.shape[1], len2=B.shape[1])
+            r2s[at] = format_rounded(ex.r_square, ex.r_square_is_int_zero)
+            dps[at] = format_rounded(ex.d_prime, ex.d_prime_is_int_zero)
+            rr = round4(ex.r_square)
+            rr[ex.r_square_is_int_zero] = 0.0
+            r2r[at] = rr
+    return r2s, dps, r2r
+
+
+def _check_mixed_hits(tag, path, data, gp, pos, pgroup, seed):
+    """A mixed scan's TSV against :func:`_recount_mixed` (the cohort's
+    columns of each profile from the store in ``data``): sampled hits
+    inside the segments and across them (values), and sampled
+    pairs across each boundary inside the window (a hit exactly when the
+    rounded r^2 >= 0.8).  Returns (hits, hits across segments)."""
+    from ld_tools_tpu_torch.tools.common import DataConfig
+
+    cfg = DataConfig.resolve(data, True, "both", "all")
+    cp = cfg.store().chrom("X").cohort_ploidy(cfg.sample_names)
+    cols = [cp.cols_for(g) for g in range(int(pgroup.max()) + 1)]
+    v = gp.shape[0]
+    lo, hi = chrx_bounds(v)
+    i, j, r2s, dps = read_tsv(path, pos)
+    check(len(i) > 0 and bool(np.all(i > j)), f"{tag}: hits")
+    seg_i = np.searchsorted([lo, hi], i, side="right")
+    seg_j = np.searchsorted([lo, hi], j, side="right")
+    across = np.flatnonzero(seg_i != seg_j)
+    check(across.size > 0, f"{tag}: no hit across the segments")
+    rng = np.random.default_rng(seed)
+    within = np.flatnonzero(seg_i == seg_j)
+    pick = np.concatenate([
+        rng.choice(within, size=min(2000, within.size), replace=False),
+        rng.choice(across, size=min(2000, across.size), replace=False)])
+    want_r2, want_dp, _ = _recount_mixed(gp, pgroup, cols, i[pick],
+                                         j[pick])
+    check(np.array_equal(want_r2.astype(str), r2s[pick]),
+          f"{tag}: sampled hit r^2")
+    check(np.array_equal(want_dp.astype(str), dps[pick]),
+          f"{tag}: sampled hit D'")
+    key = i * v + j
+    a = np.concatenate([rng.integers(lo, lo + 300, size=2000),
+                        rng.integers(hi, hi + 300, size=2000)])
+    b = np.concatenate([rng.integers(lo - 300, lo, size=2000),
+                        rng.integers(hi - 300, hi, size=2000)])
+    _, _, r2r = _recount_mixed(gp, pgroup, cols, a, b)
+    want = (r2r >= 0.8) & (np.abs(pos[a] - pos[b]) <= 1_000_000)
+    is_hit = np.isin(a * v + b, key)
+    check(np.array_equal(is_hit, want),
+          f"{tag}: sampled pairs across the boundaries: "
+          f"{int((is_hit != want).sum())} of {len(a)} disagree")
+    log(f"mixed scan check ({tag}): {len(pick)} sampled hits (of "
+        f"{len(i)}; {across.size} across the segments) and {len(a)} pairs "
+        f"across the boundaries ({int(is_hit.sum())} hits) agree with the "
+        "recount")
+    return len(i), across.size
+
+
+def phase_mixed_scan(work):
+    """ld_scan on a chrX store of chr21's row count (102,400 variants x
+    2,504 samples; males haploid outside the PAR bands: three ploidy
+    segments) with -w 1000000, r^2 >= 0.8, in both resident layouts: the
+    segments' scans must launch K5/K3 (int8) or K6/K4 (packed) only, the
+    engine must count the cross-segment rectangles on the card, the two
+    TSVs must be identical and hold the recount's hits."""
+    from ld_tools_tpu_torch.ops import engine
+
+    t0 = time.perf_counter()
+    gp, pos, pgroup, profiles = chrx_dataset(N_VARIANTS, seed=23)
+    data = os.path.join(work, "chrX")
+    write_store(data, "X", gp, pos, seed=23, pgroup=pgroup,
+                ploidy_profiles=profiles)
+    log(f"data: chrX {gp.shape[0]} variants x {N_HAP // 2} samples "
+        f"({int((profiles[1] == 1).sum())} haploid outside the PAR bands "
+        f"{chrx_bounds(gp.shape[0])}), made and written in "
+        f"{time.perf_counter() - t0:.1f}s")
+    runs, bodies = {}, {}
+    for tag, limit in (("int8", None), ("packed", "0")):
+        if limit is not None:
+            os.environ[LIMIT] = limit
+        try:
+            report, secs, launches = _run_scan(
+                data, os.path.join(work, f"out_x_{tag}"),
+                ("-w", "1000000"), chrom="X")
+        finally:
+            os.environ.pop(LIMIT, None)
+        st = report.stats
+        rects = engine.count_on_device.launches
+        _log_scan(f"chrX, {tag}", report, secs, launches)
+        check(st["segments"] == 3, f"chrX {tag}: {st['segments']} segments")
+        check(st["resident_packed"] == (3.0 if limit else 0.0),
+              f"chrX {tag}: {st['resident_packed']} packed segments")
+        _check_layout_launches(f"chrX, {tag}", launches, packed=bool(limit))
+        check(st["rects"] > 0 and rects == st["rects"],
+              f"chrX {tag}: {st['rects']} rectangles, {rects} engine "
+              "launches")
+        log(f"mixed scan (chrX, {tag}): {st['segments']} segments, "
+            f"{st['rects']} rectangles (engine launches {rects}): dispatch "
+            f"{st['rect_dispatch_s']:.3f}s, finish {st['rect_finish_s']:.3f}s"
+            f"; segments' count {st['count_s']:.3f}s, fetch "
+            f"{st['fetch_s']:.3f}s; wall {secs:.2f}s")
+        with open(report.path, "rb") as fh:
+            bodies[tag] = fh.read()
+        runs[tag] = dict(hits=report.n_hits, seconds=secs, stats=st,
+                         engine_launches=rects,
+                         launches={KERNELS[k][0] + " " + k: n
+                                   for k, n in launches.items() if n})
+    check(bodies["int8"] == bodies["packed"],
+          "chrX: the packed layout's TSV differs from the int8 layout's")
+    _, n_across = _check_mixed_hits(
+        "chrX", os.path.join(work, "out_x_int8", "ld_scan_chrX_r_0.8.tsv"),
+        data, gp, pos, pgroup, seed=9)
+    runs["across_hits"] = n_across
+    shutil.rmtree(data, ignore_errors=True)
+    return runs
+
+
 def phase_parity(work):
     """-E cuda (both layouts) and -E torch on a small store: identical
     bytes."""
@@ -1650,6 +1986,95 @@ def phase_parity(work):
     check(bodies["cuda"].count(b"\n") > 2, "parity TSV holds no hits")
     log("parity: the -E cuda TSVs of both layouts are byte-identical to "
         "-E torch")
+    _parity_area(work, data, gp.shape[0])
+    datax = os.path.join(work, "parity_x")
+    gpx, posx, pgx, profx = chrx_dataset(N_PARITY, seed=6)
+    write_store(datax, "X", gpx, posx, seed=6, pgroup=pgx,
+                ploidy_profiles=profx)
+    _parity_mixed_scan(work, datax)
+    lo, _ = chrx_bounds(N_PARITY)
+    _parity_lite([(data, rsid_of(10), rsid_of(17)),
+                  (datax, rsid_of(lo - 3), rsid_of(lo + 5))])
+
+
+def _parity_area(work, data, v):
+    """ld_area, -E cuda against -E torch, in each file type: the same
+    files byte for byte; the cuda runs count on the card."""
+    from ld_tools_tpu_torch import ld_area
+    from ld_tools_tpu_torch.ops import engine
+
+    src = os.path.join(work, "parity_area_src")
+    rows = _area_sources(src, v, v, 1)
+    for file_type in ("tsv", "json", "rsids"):
+        trees = {}
+        for eng in ("cuda", "torch"):
+            out = os.path.join(work, f"parity_area_{file_type}_{eng}")
+            engine.reset_launches()
+            ld_area.main(["-S", src, "-D", data, "-t", out, "-o", file_type,
+                          "-E", eng])
+            check((engine.count_on_device.launches > 0) == (eng == "cuda"),
+                  f"parity: ld_area -E {eng} -o {file_type}: "
+                  f"{engine.count_on_device.launches} engine launches")
+            trees[eng] = _tree(out)
+        check(trees["cuda"] == trees["torch"] and trees["cuda"],
+              f"parity: ld_area -o {file_type}: -E cuda and -E torch "
+              "files differ")
+        log(f"parity: ld_area -o {file_type} ({len(rows)} queries): "
+            f"{len(trees['cuda'])} files, -E cuda byte-identical to "
+            "-E torch")
+
+
+def _parity_mixed_scan(work, datax):
+    """The chrX scan, -E cuda against -E torch: the same TSV bytes."""
+    from ld_tools_tpu_torch import ld_scan
+    from ld_tools_tpu_torch.ops import engine
+
+    bodies = {}
+    for eng in ("cuda", "torch"):
+        engine.reset_launches()
+        (report,) = ld_scan.main(["-C", "X", "-D", datax, "-t",
+                                  os.path.join(work, f"parity_x_{eng}"),
+                                  "-z", "0.8", "-E", eng])
+        check(report.stats["rects"] > 0 and (
+            engine.count_on_device.launches > 0) == (eng == "cuda"),
+            f"parity: chrX scan -E {eng}: {report.stats['rects']} "
+            f"rectangles, {engine.count_on_device.launches} engine launches")
+        with open(report.path, "rb") as fh:
+            bodies[eng] = fh.read()
+    check(bodies["cuda"] == bodies["torch"] and bodies["cuda"].count(b"\n")
+          > 2, "parity: the chrX scan's -E cuda and -E torch TSVs differ")
+    log(f"parity: chrX scan ({report.stats['segments']} segments, "
+        f"{report.stats['rects']} rectangles): -E cuda byte-identical to "
+        "-E torch")
+
+
+def _parity_lite(pairs):
+    """ld_lite, -E cuda against -E torch, on each (data dir, rsID, rsID):
+    the rendered table where tabulate is installed, else the query's
+    values and annotations (everything the table shows)."""
+    import importlib.util
+
+    from ld_tools_tpu_torch import ld_lite
+    from ld_tools_tpu_torch.cli.ld_lite_cli_en import add_args_en
+    from ld_tools_tpu_torch.tools import lite
+
+    render = importlib.util.find_spec("tabulate") is not None
+    log("parity: tabulate " + ("installed: ld_lite's tables are compared"
+                               if render else "not installed: ld_lite's "
+                               "query values are compared, its table is "
+                               "not rendered"))
+    for data, a, b in pairs:
+        got = {}
+        for eng in ("cuda", "torch"):
+            args = add_args_en(ld_lite.__version__, [a, b, "-D", data,
+                                                     "-E", eng])
+            got[eng] = lite.run(args) if render else lite.pair_query(args)
+        check(got["cuda"] == got["torch"],
+              f"parity: ld_lite {a} {b}: -E cuda and -E torch differ")
+        vals = (lite.pair_query(args)["trg_vals"] if render
+                else got["cuda"]["trg_vals"])
+        log(f"parity: ld_lite {a} {b} ({os.path.basename(data)}): -E cuda "
+            f"equals -E torch: {vals}")
 
 
 def _run_module(module, *args, timeout=600):
@@ -1686,7 +2111,8 @@ def phase_bench(work, results):
     """The port's measurement entry points, as subprocesses: the headline
     sweep (its one JSON line, bench.py's keys), the K8 stage split (its
     launch counts are K8's on its path), the fast triangle variants and
-    suite config 5 (its artifact).  Returns the headline record."""
+    suite configs 5, 1 and 3 (their artifact).  Returns the headline
+    record."""
     out, err, rep = _run_module("ld_tools_tpu_torch.bench")
     lines = out.strip().splitlines()
     check(len(lines) == 1, f"the headline printed {len(lines)} lines")
@@ -1726,15 +2152,23 @@ def phase_bench(work, results):
 
     art = os.path.join(work, "suite.json")
     _, _, rep = _run_module("ld_tools_tpu_torch.bench.suite", "--configs",
-                            "5", "--out", art)
-    # config 5's default kernel="dense": one unpack on the card, then K1
-    _only_launched("bench.suite --configs 5", rep["launches"],
+                            "5,1,3", "--out", art)
+    # config 5's default kernel="dense": one unpack on the card, then K1;
+    # configs 1 (ld_lite) and 3 (ld_area) count through the engine
+    _only_launched("bench.suite --configs 5,1,3", rep["launches"],
                    {"ld_triangle_blocks"})
     with open(art) as fh:
-        (row,) = json.load(fh)["results"]
-    check(row["config"] == "5_batch_8chrom" and row["seconds"] > 0,
-          f"suite artifact row {row}")
-    log(f"  suite: {json.dumps(row)}")
+        rows = json.load(fh)["results"]
+    check([r["config"] for r in rows] == [
+        "5_batch_8chrom", "1_ld_lite_pair", "1b_ld_lite_pair_warm",
+        "3_ld_area_50q_250kb", "3_ld_area_50q_250kb_warm"]
+          and all(r["seconds"] > 0 for r in rows),
+          f"suite artifact rows {rows}")
+    check(rep["engine"] > 0 and rows[3]["engine_launches"] > 0
+          and rows[3]["files"] > 0, f"suite config 3 on the card: {rows[3]}"
+          f", engine launches {rep['engine']}")
+    for row in rows:
+        log(f"  suite: {json.dumps(row)}")
     return head
 
 
@@ -1772,8 +2206,10 @@ def main():
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         scan, stores = phase_scan(work, gp, pos, results)
+        area = phase_area(work, stores["chr21"], gp, pos)
         sharded = phase_sharded(work, stores, gp, pos, results)
         del stores
+        mixed = phase_mixed_scan(work)
         phase_parity(work)
         torch.cuda.empty_cache()  # the bench processes share the card
         headline = phase_bench(work, results)
@@ -1787,7 +2223,7 @@ def main():
         kernels.append(dict(
             name=name, tag=tag, route="cuda",
             source=(COUNT_SOURCE if tag in ("K5", "K6", "K7") else
-                    SOURCE if tag == "K2" else BLOCK_SOURCE),
+                    BLOCK_SOURCE),
             replaces=replaces, launches=r["launches"],
             max_abs_err=r["max_abs_err"], ms=r["ms"], plain_ms=r["plain_ms"],
             bound_ms=r["bound_ms"], bound_by=r["bound_by"],
@@ -1797,6 +2233,7 @@ def main():
         ))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"build_s": build["seconds"], "scan": scan,
+                      "area": area, "mixed_scan": mixed,
                       "sharded": sharded, "headline": headline},
                      default=float))
     # the build's per-instance resources again, past the long phases

@@ -11,6 +11,14 @@ ld_tools_tpu_torch.bench``.
 Ported configs:
 0.  ingest: the native BGZF scanner (the port's ``ingest.native``),
     single vs multi-thread.
+1.  ld_lite: one pair on a synthetic 100-variant x 2,504-sample store,
+    cold and warm, without the table's render (one pair is below the
+    engine's host cutoff: its counts run on the host whatever the
+    device).
+3.  ld_area: r^2 >= 0.8 around 50 query rsIDs (every 100th of 5,000
+    variants) with 250 kb flanks on one chromosome, 4 source-file
+    threads, cold and warm; the count jobs go through the engine on the
+    device (ops/engine.py).
 4.  chr21 scale: a 102,400 x 5,008 streamed threshold scan (r^2 >= 0.8),
     cold and warm (resident cache), without (4) and with (4b) the exact
     f64 finish.
@@ -19,10 +27,10 @@ Ported configs:
     ``ld_triangle_matrix_packed`` (fast r^2), round-robin over the
     processes of a ``torch.distributed`` group (one process: all 8).
 
-Not ported, and refused rather than skipped: 1, 2, 3, 6 and 6c run the
-ld_lite / ld_triangle / ld_area tools (ROADMAP queue 6); 0gb and wg, the
-GB-scale ingest and the whole-genome prep and scan, are measurement work
-still to port (ROADMAP queue 9).
+Not ported, and refused rather than skipped: 2, 6 and 6c run the
+ld_triangle tool and its heatmap (ROADMAP queue 1, item 5); 0gb and wg,
+the GB-scale ingest and the whole-genome prep and scan, are measurement
+work still to port (ROADMAP queue 1, item 8).
 
 Sizes are the module constants below, so a test can shrink them.
 """
@@ -44,6 +52,12 @@ from ld_tools_tpu_torch.utils.device import resolve_device
 
 CONFIG0_SAMPLES = 2504
 CONFIG0_VARIANTS = 6000
+CONFIG1_SAMPLES = 2504
+CONFIG1_VARIANTS = 100
+CONFIG3_SAMPLES = 2504
+CONFIG3_VARIANTS = 5000
+CONFIG3_QUERIES = 50
+CONFIG3_FLANK = 250_000
 CONFIG4_VARIANTS = 102_400
 CONFIG4C_VARIANTS = 204_800
 CONFIG5_CHROMS = 8
@@ -100,6 +114,89 @@ def config0(rec, dev):
             rec.record("0_ingest", best, n_threads=n_threads,
                        mb_per_s=round(mbps, 1),
                        variants_per_s=round(n_var / best, 1))
+
+
+def _env(n_samples, chrom_variant_counts, seed):
+    """A synthetic prepared data directory (the port's ingest): returns
+    (its path, {chrom: {rsid: pos}})."""
+    from ld_tools_tpu_torch.ingest import prep, synth
+
+    d = tempfile.mkdtemp(prefix="tpu_ld_bench_")
+    rs = synth.generate_dataset(
+        d, n_samples=n_samples, chrom_variant_counts=chrom_variant_counts,
+        seed=seed)
+    prep.prep_intgen_data(d)
+    return d, rs
+
+
+def _engine(dev) -> str:
+    """The tools' -E choice for ``dev``."""
+    return "cuda" if dev.type == "cuda" else "torch"
+
+
+def config1(rec, dev):
+    """ld_lite: one pair, cold and warm (scripts/bench_suite.py config1):
+    the query, without the table's render (tabulate, which the card's
+    machine may lack)."""
+    import shutil
+    import types
+
+    from ld_tools_tpu_torch.tools import lite
+
+    d, rs = _env(CONFIG1_SAMPLES, {"1": CONFIG1_VARIANTS}, seed=1)
+    rsids = list(rs["1"])
+    args = types.SimpleNamespace(
+        rs_id_1=rsids[CONFIG1_VARIANTS // 10],
+        rs_id_2=rsids[CONFIG1_VARIANTS * 6 // 10], intgen_dir_path=d,
+        skip_intgen_data_ver=True, gend_names="both", pop_names="all",
+        engine=_engine(dev),
+    )
+    try:
+        for label in ("1_ld_lite_pair", "1b_ld_lite_pair_warm"):
+            t0 = time.perf_counter()
+            lite.pair_query(args)
+            dt = time.perf_counter() - t0
+            print(f"config{label[:2].rstrip('_')} ld_lite pair: {dt:.3f}s")
+            rec.record(label, dt, device=dev.type)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+
+
+def config3(rec, dev):
+    """ld_area: 50 queries, 250 kb flanks (scripts/bench_suite.py
+    config3); each run's files are written anew."""
+    import shutil
+    import types
+
+    from ld_tools_tpu_torch.ops import engine
+    from ld_tools_tpu_torch.tools import area
+
+    d, rs = _env(CONFIG3_SAMPLES, {"3": CONFIG3_VARIANTS}, seed=3)
+    src = tempfile.mkdtemp(prefix="tpu_ld_bench_src_")
+    with open(os.path.join(src, "q.txt"), "w") as fh:
+        fh.write("\n".join(list(rs["3"])[::100][:CONFIG3_QUERIES]) + "\n")
+    args = types.SimpleNamespace(
+        src_dir_path=src, intgen_dir_path=d, trg_top_dir_path=src,
+        meta_lines_quan=0, skip_intgen_data_ver=True, gend_names="both",
+        pop_names="all", flank_size=CONFIG3_FLANK,
+        ld_thres_measure="r_square", ld_low_thres=0.8, trg_file_type="tsv",
+        max_proc_quan=4, engine=_engine(dev),
+    )
+    try:
+        for warm in (False, True):
+            before = engine.count_on_device.launches
+            t0 = time.perf_counter()
+            files = area.run(args)
+            dt = time.perf_counter() - t0
+            label = "3_ld_area_50q_250kb" + ("_warm" if warm else "")
+            jobs = engine.count_on_device.launches - before
+            print(f"config{label}: {dt:.3f}s, {files} files, {jobs} engine "
+                  "launches")
+            rec.record(label, dt, files=files, engine_launches=jobs,
+                       device=dev.type)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(src, ignore_errors=True)
 
 
 def _scan_dataset(V, pos_span, seed):
@@ -223,26 +320,26 @@ def config5(rec, dev):
                chroms_on_host=len(mine), device=dev.type)
 
 
-def _not_ported(key, what, queue):
+def _not_ported(key, what, item):
     def config(rec, dev):
         raise NotImplementedError(
             f"suite config {key} ({what}) is not ported yet "
-            f"(ROADMAP queue {queue})")
+            f"(ROADMAP queue 1, item {item})")
     return config
 
 
 CONFIGS = {
     "0": config0,
-    "1": _not_ported("1", "the ld_lite tool", 6),
-    "2": _not_ported("2", "the ld_triangle tool", 6),
-    "3": _not_ported("3", "the ld_area tool", 6),
+    "1": config1,
+    "2": _not_ported("2", "the ld_triangle tool", 5),
+    "3": config3,
     "4": config4,
     "4c": config4c,
     "5": config5,
-    "6": _not_ported("6", "the ld_triangle tool", 6),
-    "6c": _not_ported("6c", "the ld_triangle heatmap", 6),
-    "0gb": _not_ported("0gb", "GB-scale ingest", 9),
-    "wg": _not_ported("wg", "whole-genome prep and scan", 9),
+    "6": _not_ported("6", "the ld_triangle tool", 5),
+    "6c": _not_ported("6c", "the ld_triangle heatmap", 5),
+    "0gb": _not_ported("0gb", "GB-scale ingest", 8),
+    "wg": _not_ported("wg", "whole-genome prep and scan", 8),
 }
 
 
@@ -282,7 +379,9 @@ def main(argv=None) -> list:
     rec = Recorder()
     for key in keys:
         CONFIGS[key](rec, dev)
-    common.log_launches()
+    from ld_tools_tpu_torch.ops.engine import count_on_device
+
+    common.log_launches(engine=count_on_device.launches)
     if args.out:
         with open(args.out, "w") as fh:
             json.dump({"meta": meta, "results": rec.rows}, fh, indent=1)

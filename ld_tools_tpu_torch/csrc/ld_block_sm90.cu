@@ -2,7 +2,7 @@
 //
 // One kernel, a template on the operand form of the rows (Form) and on
 // what it stores (Store), on the wgmma / TMA core of ld_sm90_core.cuh
-// that the count pass (ld_count_sm90.cu) runs on.  Five instances, each
+// that the count pass (ld_count_sm90.cu) runs on.  Six instances, each
 // at tiles 320 and 256 wide:
 //
 //   <FORM_S8, STORE_TRIANGLE>    replaces ld_tools_tpu/ops/ld_pallas.py
@@ -20,6 +20,10 @@
 //       triangle with the int8 rows cast to bf16 or f32 inside the kernel
 //       and multiplied in bf16 or TF32, summed in f32.  The sums are exact
 //       integers, so the outputs are K1's bit for bit.
+//   <FORM_BITS, STORE_TRIANGLE>  replaces _tri_kernel_packed (K2, :303;
+//       pallas_call :467): the same triangle on the store's bitpacked
+//       bytes (W bytes a row, padded to 128), unpacked into the s8 stages
+//       by K4's reshaping warps: K1's counts, so K1's r^2 / D' bit for bit.
 //   <FORM_S8, STORE_SWEEP>       replaces _band_sweep_kernel, dense (K3,
 //       :747; pallas_call :846): any subset of cab (int32), r2, dp and
 //       meas (the fast r^2 when sel == 0, the exact-order D' when sel ==
@@ -30,8 +34,6 @@
 //   <FORM_BITS, STORE_SWEEP>     replaces the packed branch of the same
 //       kernel (K4, _band_counts_packed :693) on the store's bitpacked
 //       bytes: K3's outputs bit for bit.
-// The triangle on packed bytes (K2) still runs on ld_kernels.cu's
-// mma.sync core.
 //
 // Bound: the tensor-core operations.  The headline sweep (bench.py: V =
 // 10,240 x 5,120 haplotypes, 136 blocks of 640^2) is 2 x 5,008 x 55.7 M
@@ -40,18 +42,18 @@
 // (0.067 ms at 3.35 TB/s) and reads 52 MB.  So the stores must drain
 // under the products, not after them.
 //
-// The design, and what it does about what held the mma.sync kernels it
+// The design, and what it does about what held the warp-level MMA kernels it
 // replaces (K1 at 0.22 of that peak and 1.31x torch._int_mm's time over
-// the same blocks; K3 at 0.22, K4 at 0.29; K1b at 0.17 / 0.26, 3.7x and
-// 2.2x torch.matmul in bf16 / TF32):
+// the same blocks; K3 at 0.22, K4 at 0.29, K2 at 0.29; K1b at 0.17 / 0.26,
+// 3.7x and 2.2x torch.matmul in bf16 / TF32):
 //  1. The core of the count pass: wgmma m64n160 (or m64n128) from shared
 //     memory through descriptors (no per-thread fragment loads), a
 //     3-stage TMA + mbarrier ring that no __syncthreads interrupts,
 //     persistent thread blocks (grid = min(SMs, tiles), from the wrapper)
 //     walking blocks x tiles, setmaxnreg giving the two consumer
-//     warpgroups the accumulators' registers.  K4's bytes are unpacked
-//     into the s8 stages by the producer warpgroups' unpack warps, as
-//     K6's are.
+//     warpgroups the accumulators' registers.  K2's and K4's bytes are
+//     unpacked into the s8 stages by the producer warpgroups' unpack
+//     warps, as K6's are.
 //  2. K1b's operands.  A ring stage is one 128-byte swizzle row a row in
 //     every form: 128 int8, 64 bf16 or 32 f32 haplotypes, and the wgmma
 //     k-step is 32 bytes of it (k32 s8, k16 bf16, k8 tf32), so the
@@ -315,9 +317,8 @@ __global__ void __launch_bounds__(n_threads<FORM>(), 1)
 ld_block_kernel(const __grid_constant__ CUtensorMap map_a,
                 const __grid_constant__ CUtensorMap map_b,
                 const __grid_constant__ BlockArgs a) {
-    static_assert(STORE == STORE_TRIANGLE ? FORM != FORM_BITS
-                                          : FORM == FORM_S8 ||
-                                                FORM == FORM_BITS,
+    static_assert(STORE == STORE_TRIANGLE || FORM == FORM_S8 ||
+                      FORM == FORM_BITS,
                   "the routed instances only");
     extern __shared__ uint8_t smem_raw[];
     BlockSmem& sm = aligned_smem<BlockSmem>(smem_raw);
@@ -361,11 +362,12 @@ int launch_block(const void* ga, const void* gb, const BlockArgs& a,
 
 }  // namespace
 
-// ---- plain C interface (loaded with ctypes; see ld_kernels.cu) -------------
+// ---- plain C interface (loaded with ctypes; ops/_cuda_build.py) ------------
 // ``grid`` is the number of persistent thread blocks (the wrapper passes
 // min(SMs, tiles)).  Returns cudaErrorInvalidValue without a launch for a
-// form with no routed instance (the triangle takes FORM_S8, FORM_BF16
-// and FORM_TF32, the sweep FORM_S8 and FORM_BITS), an unknown epilogue, a
+// form with no routed instance (the triangle takes every form: FORM_S8,
+// FORM_BITS, FORM_BF16 and FORM_TF32; the sweep FORM_S8 and FORM_BITS),
+// an unknown epilogue, a
 // grid below 1, a block side outside [1, 2048], no rows, a W that is not
 // a positive multiple of 16 or a matrix that TMA cannot describe;
 // cudaErrorSymbolNotFound when the driver has no cuTensorMapEncodeTiled.
@@ -377,7 +379,8 @@ int ldk_block_triangle(const void* g, const void* c1, const void* ipq,
                        int block_m, int block_n, float n_f, float inv_n,
                        int epi, int form, int grid, void* r2, void* dp,
                        void* stream) {
-    if ((form != FORM_S8 && form != FORM_BF16 && form != FORM_TF32) ||
+    if ((form != FORM_S8 && form != FORM_BITS && form != FORM_BF16 &&
+         form != FORM_TF32) ||
         epi < EPI_EXACT || epi > EPI_SCALE || (dp && epi != EPI_EXACT) ||
         !r2)
         return static_cast<int>(cudaErrorInvalidValue);
@@ -395,6 +398,8 @@ int ldk_block_triangle(const void* g, const void* c1, const void* ipq,
     a.mode = dp ? MODE_EXACT_DP : epi;
     a.r2 = static_cast<float*>(r2);
     a.dp = static_cast<float*>(dp);
+    if (form == FORM_BITS)
+        return launch_block<FORM_BITS, STORE_TRIANGLE>(g, g, a, grid, stream);
     if (form == FORM_BF16)
         return launch_block<FORM_BF16, STORE_TRIANGLE>(g, g, a, grid, stream);
     if (form == FORM_TF32)
@@ -432,6 +437,10 @@ int ldk_block_sweep(const void* ga, const void* gb, const void* c1a,
     if (form == FORM_BITS)
         return launch_block<FORM_BITS, STORE_SWEEP>(ga, gb, a, grid, stream);
     return launch_block<FORM_S8, STORE_SWEEP>(ga, gb, a, grid, stream);
+}
+
+const char* ldk_error_string(int err) {
+    return cudaGetErrorString(static_cast<cudaError_t>(err));
 }
 
 }  // extern "C"

@@ -1,8 +1,14 @@
 // Device code shared by every kernel source: the operand forms of the
 // rows and the epilogue and mask functions.  Each count, sweep and
 // triangle kernel finishes its exact int32 counts with these functions, so
-// every pass of a scan derives its numbers from the same arithmetic
-// (compiled with -fmad=false in every source: see ld_kernels.cu).
+// every pass of a scan derives its numbers from the same arithmetic.
+//
+// Build (ops/_cuda_build.py, every csrc/*.cu the same way):
+//        nvcc -gencode arch=compute_90a,code=sm_90a -O3 -fmad=false
+//        -std=c++17 -c -Xcompiler -fPIC, linked with -shared.
+// -fmad=false is required: the f32 epilogues must round every product and
+// sum on its own, exactly as the plain PyTorch versions do op by op, or
+// the f32 fallback mask of the count pass and the fetch pass could differ.
 
 #pragma once
 

@@ -14,11 +14,11 @@
 // H100's 1,979e12 int8 operations a second: chr21's 12,880 blocks of
 // 640^2 are 26.5 ms of it, against 0.5 GB read from HBM (0.16 ms).
 //
-// The design, and what it does about what held the mma.sync kernel it
+// The design, and what it does about what held the warp-level MMA kernel it
 // replaces at 23-28 % of that peak:
 //  1. Tensor cores.  wgmma.mma_async m64n160k32 s8.s8 -> s32, both
 //     operands K-major from shared memory (the rows are K-contiguous), in
-//     place of mma.sync m16n8k32 (SASS IMMA, the legacy path).
+//     place of the warp-level MMA m16n8k32 (SASS IMMA, the legacy path).
 //  2. Operand reads.  wgmma reads its operands from shared memory through
 //     a descriptor: no per-thread fragment loads (the old core spent 24
 //     LDS.32 per 16 MMAs, more shared-memory clocks than MMA clocks).
@@ -45,7 +45,7 @@
 //     rows read them through L2 at about the same time.
 //
 // K6, the bit-plane form: wgmma reads B from shared memory, so the packed
-// bytes cannot be unpacked in registers as the mma.sync core did.  The
+// bytes cannot be unpacked in registers as the warp-level MMA core did.  The
 // producer thread TMA-loads 16 packed bytes a row per stage (8x fewer
 // bytes, a ring of 4), and a second producer warpgroup with the three
 // other warps of the first (7 warps, 2 rows a thread) unpack them into
@@ -77,7 +77,7 @@
 // the tensor map) is ld_sm90_core.cuh, which ld_block_sm90.cu (K1, K8, K4)
 // shares; this file adds the count walk's rule, the mask and the count.
 //
-// Built with -fmad=false like every source (ld_kernels.cu says why).
+// Built with -fmad=false like every source (ld_common.cuh says why).
 
 #include "ld_sm90_core.cuh"
 
@@ -294,7 +294,7 @@ ld_band_count_kernel(const __grid_constant__ CUtensorMap map,
 
 }  // namespace
 
-// ---- plain C interface (loaded with ctypes; see ld_kernels.cu) -------------
+// ---- plain C interface (loaded with ctypes; ops/_cuda_build.py) ------------
 // ``grid`` is the number of persistent thread blocks (the wrapper passes
 // min(SMs, tiles)).  Returns cudaErrorInvalidValue without a launch for
 // an unknown form, a grid below 1, a block side outside [1, 2048], no

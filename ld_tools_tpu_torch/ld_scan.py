@@ -11,8 +11,8 @@ scan one chromosome together:
 
     torchrun --nproc_per_node 2 -m ld_tools_tpu_torch.ld_scan -C 21 ...
 
-Run as a module it prints its kernel launch counts as one JSON line on
-stderr at the end.
+Run as a module it prints its kernel launch counts (and the engine's) as
+one JSON line on stderr at the end.
 """
 
 __version__ = "V1.0-torch"
@@ -34,5 +34,7 @@ def main(argv=None):
 if __name__ == "__main__":
     main()
     from ld_tools_tpu_torch.bench.common import log_launches
+    from ld_tools_tpu_torch.ops.engine import count_on_device
 
-    log_launches()
+    # the engine counts a mixed-ploidy chromosome's cross-segment blocks
+    log_launches(engine=count_on_device.launches)

@@ -6,7 +6,8 @@ ctypes: no PyTorch headers, so the build takes seconds.  The library goes
 to ``ld_tools_tpu_torch/_build/`` at first use, through a per-process
 temporary name and an atomic rename (concurrent builds never expose a
 half-written library), and is rebuilt when any source or header under
-csrc/ is newer.  Pointers and the stream cross as ``ctypes.c_void_p``;
+csrc/ is newer, or when the set of sources differs from the one it was
+built from (a manifest beside it lists them).  Pointers and the stream cross as ``ctypes.c_void_p``;
 every entry point returns ``cudaGetLastError()`` (or its own refusal)
 and :func:`check` raises on a non-zero code.
 """
@@ -24,13 +25,14 @@ import time
 from ld_tools_tpu_torch.utils.paths import BUILD_DIR, PKG_ROOT
 
 CSRC = os.path.join(PKG_ROOT, "csrc")
-# ld_kernels.cu: the mma.sync packed triangle (K2); ld_block_sm90.cu: the
-# wgmma / TMA triangle (K1, K8; bf16 and tf32, K1b) and band sweeps (K3,
-# K4); ld_count_sm90.cu: the wgmma / TMA count pass (K5, K6); the last two
-# share ld_sm90_core.cuh
+# ld_block_sm90.cu: the wgmma / TMA triangle (K1, K8; on packed bytes K2;
+# bf16 and tf32, K1b) and band sweeps (K3, K4); ld_count_sm90.cu: the
+# wgmma / TMA count pass (K5, K6); both on ld_sm90_core.cuh
 SOURCES = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cu"))))
 HEADERS = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
 LIB = os.path.join(BUILD_DIR, "libld_kernels.so")
+# the names of the sources and headers LIB was built from, one a line
+MANIFEST = LIB + ".sources"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-O3",
@@ -54,9 +56,6 @@ _SIGNATURES = {
     "ldk_band_count": (
         _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F, _F, _I,
         _I, _I, _I, _I, _I, _P, _P,
-    ),
-    "ldk_triangle": (
-        _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _P, _P, _P,
     ),
     "ldk_block_triangle": (
         _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _F, _I, _I, _I, _P, _P, _P,
@@ -88,10 +87,22 @@ def _nvcc() -> str:
     )
 
 
+def _manifest() -> str:
+    return "".join(os.path.basename(f) + "\n" for f in SOURCES + HEADERS)
+
+
 def _stale() -> bool:
-    """True when the library is missing or older than any source or
-    header under csrc/."""
+    """True when the library is missing, older than any source or header
+    under csrc/, or built from another set of them (a source added or
+    deleted: a library from an older tree keeps the entry points of a
+    deleted source)."""
     if not os.path.exists(LIB):
+        return True
+    try:
+        with open(MANIFEST) as f:
+            if f.read() != _manifest():
+                return True
+    except OSError:
         return True
     newest = max(os.path.getmtime(f) for f in SOURCES + HEADERS)
     return os.path.getmtime(LIB) < newest
@@ -150,6 +161,9 @@ def build(force: bool = False, verbose: bool = False) -> dict:
     finally:
         _remove(objs)
     os.replace(tmp, LIB)
+    with open(f"{MANIFEST}.{tag}", "w") as f:
+        f.write(_manifest())
+    os.replace(f"{MANIFEST}.{tag}", MANIFEST)
     return {"seconds": time.perf_counter() - t0,
             "log": "".join(logs) + link.stdout + link.stderr}
 

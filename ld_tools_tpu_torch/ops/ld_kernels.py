@@ -3,11 +3,11 @@
 Each wrapper launches its hand-written CUDA kernel for tensors on the
 card and runs its plain PyTorch version for tensors on the CPU; any other
 device raises.  The kernels: csrc/ld_block_sm90.cu (ld_block_kernel: the
-triangle K1 with K8 and its bf16 / tf32 forms K1b, the band sweeps K3
-and K4) and csrc/ld_count_sm90.cu (the count pass K5, K6) on the wgmma /
-TMA core of csrc/ld_sm90_core.cuh, and csrc/ld_kernels.cu (K2, the
-packed triangle) on the mma.sync core.  Nothing falls back: a CUDA
-tensor either goes through the kernel or the call raises.
+triangle K1 with K8, its form on packed bytes K2 and its bf16 / tf32
+forms K1b, the band sweeps K3 and K4) and csrc/ld_count_sm90.cu (the
+count pass K5, K6), both on the wgmma / TMA core of
+csrc/ld_sm90_core.cuh.  Nothing falls back: a CUDA tensor either goes
+through the kernel or the call raises.
 Every launching wrapper keeps an integer ``launches`` count, bumped only
 where it launches its kernel.
 
@@ -46,7 +46,7 @@ count pass, and each has a ``*_plain`` twin:
   ld_triangle_blocks_tf32     K1b  _tri_kernel_dense, f32 dot (:292)
                                    (ld_block_kernel<FORM_TF32, triangle>)
   ld_triangle_blocks_packed   K2   _tri_kernel_packed (:303)
-                                   (ld_triangle_kernel<FORM_BITS>, mma.sync)
+                                   (ld_block_kernel<FORM_BITS, triangle>)
   ld_band_sweep_blocks        K3   _band_sweep_kernel, dense (:747)
                                    (ld_block_kernel<FORM_S8, sweep>)
   ld_band_sweep_blocks_packed K4   _band_sweep_kernel, packed (:693)
@@ -152,8 +152,8 @@ def _launch(entry: str, dev: torch.device, *args) -> int:
 
 def _check_matrix(g: torch.Tensor, name: str, packed: bool = False) -> None:
     """int8 {0,1} (or, packed, uint8 bytes), 2-D, contiguous, rows a
-    multiple of 16 bytes from a 16-byte aligned start: the kernels copy
-    16-byte chunks (cp.async)."""
+    multiple of 16 bytes from a 16-byte aligned start: the TMA maps'
+    row stride and base."""
     want = torch.uint8 if packed else torch.int8
     if g.dtype != want:
         what = "uint8 bitpacked bytes" if packed else "int8 {0,1}"
@@ -165,14 +165,6 @@ def _check_matrix(g: torch.Tensor, name: str, packed: bool = False) -> None:
             f"{name} rows must be a multiple of 16 bytes from a 16-byte "
             f"aligned start (width {g.shape[1]}); pad the haplotype axis"
         )
-
-
-def _check_grid(n_blocks: int, block_m: int, block_n: int) -> None:
-    """The mma.sync triangle (K2) launches one thread block per 128 x 128
-    sub-tile: the grid must fit."""
-    n_sub = -(-block_m // 128) * -(-block_n // 128)
-    if n_blocks * n_sub >= 2**31:
-        raise ValueError(f"{n_blocks} blocks exceed one launch's grid")
 
 
 # The count kernel's tile (csrc/ld_count_sm90.cu CT_M x CT_N) and the
@@ -569,9 +561,9 @@ def _triangle_plain(g_pad, c1, ipq, cij, n_haplotypes, *, block_m,
 def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
                      block_m, block_n, epilogue, want_dprime, out,
                      epilogues=("fast", "exact")):
-    """Launch the triangle kernel of ``form`` over the blocks ``cij``
-    (FORM_S8, FORM_BF16, FORM_TF32: ld_block_kernel on the wgmma core;
-    FORM_BITS: ld_triangle_kernel on the mma.sync core); bumps
+    """Launch ld_block_kernel<form, STORE_TRIANGLE> (the wgmma core:
+    FORM_S8 K1 / K8, FORM_BITS K2, FORM_BF16 / FORM_TF32 K1b) over the
+    blocks ``cij``, one persistent thread block per SM; bumps
     ``site.launches``."""
     c1, ipq, cij = _triangle_prep(g_pad, c1, ipq, cij, block_m, block_n,
                                   epilogue, want_dprime,
@@ -594,20 +586,11 @@ def _triangle_launch(site, form, g_pad, c1, ipq, cij, n_haplotypes, *,
                 cij.data_ptr(), cij.shape[0], v, w, block_m, block_n, n_f,
                 inv_n, EPILOGUES.index(epilogue), form)
         outs = (r2.data_ptr(), dp.data_ptr() if dp is not None else None)
-        if form == _cuda_build.FORM_BITS:
-            # K2: the mma.sync kernel, one thread block per sub-tile
-            _check_grid(cij.shape[0], block_m, block_n)
-            err = _launch("ldk_triangle", g_pad.device, *args, *outs)
-            kernel = "ld_triangle_kernel<FORM_BITS>"
-        else:
-            # K1 / K8, K1b: the wgmma kernel, one persistent thread block
-            # per SM
-            _check_rows(g_pad, "g_pad")
-            grid = _block_grid(cij.shape[0], block_m, block_n, g_pad.device)
-            err = _launch("ldk_block_triangle", g_pad.device, *args, grid,
-                          *outs)
-            kernel = f"ld_block_kernel<form {form}, triangle>"
-        _cuda_build.check(err, f"{kernel}, epilogue {epilogue}")
+        _check_rows(g_pad, "g_pad")
+        grid = _block_grid(cij.shape[0], block_m, block_n, g_pad.device)
+        err = _launch("ldk_block_triangle", g_pad.device, *args, grid, *outs)
+        _cuda_build.check(err, f"ld_block_kernel<form {form}, triangle>, "
+                          f"epilogue {epilogue}")
         site.launches += 1
     return r2, dp
 
@@ -721,12 +704,13 @@ def ld_triangle_blocks_packed_plain(gp_pad, c1, ipq, cij, n_haplotypes, *,
 def ld_triangle_blocks_packed(gp_pad, c1, ipq, cij, n_haplotypes, *,
                               block_m, block_n, epilogue="exact",
                               want_dprime=True, out=None):
-    """Launch site of ld_triangle_kernel<FORM_BITS> (K2,
-    _tri_kernel_packed; csrc/ld_kernels.cu, the last kernel on the
-    mma.sync core): :func:`ld_triangle_blocks` over the store's
-    bitpacked uint8 (V, W) rows, W bytes a multiple of 16, the bit-planes
-    unpacked inside the kernel.  The same counts as K1 on the unpacked
-    rows, so the same r^2 / D' bit for bit."""
+    """Launch site of ld_block_kernel<FORM_BITS, STORE_TRIANGLE> (K2,
+    _tri_kernel_packed; csrc/ld_block_sm90.cu, wgmma):
+    :func:`ld_triangle_blocks` over the store's bitpacked uint8 (V, W)
+    rows, W bytes a multiple of 16 (128 from ld_triangle_matrix_packed),
+    TMA reading exactly W bytes a row and K4's reshaping warps unpacking
+    the bit-planes into the s8 stages.  The same counts as K1 on the
+    unpacked rows, so the same r^2 / D' bit for bit."""
     kw = dict(block_m=block_m, block_n=block_n, epilogue=epilogue,
               want_dprime=want_dprime)
     if not _on_card(gp_pad, c1, ipq, cij):

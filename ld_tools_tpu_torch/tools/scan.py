@@ -18,14 +18,11 @@ import os
 from ld_tools_tpu_torch.io.writers import makedirs, ucsc_header_line
 from ld_tools_tpu_torch.ops.exact import format_rounded
 from ld_tools_tpu_torch.tools.common import DataConfig
+from ld_tools_tpu_torch.utils.device import engine_device
 from ld_tools_tpu_torch.utils.logging import get_logger
 from ld_tools_tpu_torch.utils.profiling import maybe_trace
 
 log = get_logger("tools.scan")
-
-# -E choice -> torch device: the hand-written kernels on the card, or
-# their plain PyTorch versions on the CPU
-ENGINE_DEVICES = {"cuda": "cuda", "torch": "cpu"}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -44,17 +41,13 @@ class ScanConfig:
         chroms = tuple(
             c for c in args.chroms.split(",") if c and c.lower() != "all"
         )
-        engine = getattr(args, "engine", "cuda")
-        if engine not in ENGINE_DEVICES:
-            raise ValueError(f"engine must be one of {sorted(ENGINE_DEVICES)}, "
-                             f"got {engine!r}")
         return ScanConfig(
             chroms=chroms,
             trg_dir_path=os.path.normpath(args.trg_dir_path),
             ld_measure=args.ld_measure,
             ld_low_thres=args.ld_low_thres,
             max_dist=args.max_dist,
-            device=ENGINE_DEVICES[engine],
+            device=engine_device(getattr(args, "engine", "cuda")),
             checkpoint_dir=getattr(args, "checkpoint_dir", None),
             n_devices=getattr(args, "devices", None),
         )
@@ -105,12 +98,280 @@ def _resident_key(data: DataConfig, cd, extra=()):
     ) + tuple(extra)
 
 
-def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig):
-    """Mixed-ploidy (chrX) scan.  Its cross-segment rectangles need the
-    engine of ld_tools_tpu/ops/engine.py, which is not ported yet."""
-    raise NotImplementedError(
-        f"chr{cd.chrom} mixes ploidy profiles; mixed-ploidy scans need "
-        "ops/engine.py, not ported yet (ROADMAP queue 5)"
+def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
+                           multiprocess: bool = False):
+    """Mixed-ploidy (chrX) scan (tools/scan.py _scan_mixed_chromosome):
+    segment the variant axis into maximal runs of one ploidy profile,
+    scan each run's triangle with its own live-column layout
+    (stream_threshold_scan: K5/K3 or K6/K4, over ``-d``'s shards where
+    given), and sweep the cross-run rectangles in blocks of 2,048 rows
+    through the engine's counts and the f64 finish (reference
+    zip-truncation semantics, calc_ld.py:30-33).  Hits are merged and
+    sorted by (i, j).  The stats hold the segment scans' numeric stats
+    summed (phases, blocks; ``resident_packed`` counts the packed
+    segments), ``segments``, ``rects`` and the rectangles'
+    ``rect_dispatch_s`` and ``rect_finish_s``.
+    """
+    import time
+
+    import numpy as np
+
+    from ld_tools_tpu_torch.ingest import pack
+    from ld_tools_tpu_torch.ops.engine import pair_counts_async
+    from ld_tools_tpu_torch.ops.exact import exact_ld_from_counts, round4
+    from ld_tools_tpu_torch.ops.ld_stream import ScanHits, stream_threshold_scan
+    from ld_tools_tpu_torch.utils.distributed import (process_count,
+                                                      process_index)
+
+    pos = np.asarray(cd.pos)
+    pgroup = cp.groups_of(np.arange(cd.n_variants))
+    cuts = np.flatnonzero(np.diff(pgroup)) + 1
+    starts = np.concatenate([[0], cuts]).astype(np.int64)
+    stops = np.concatenate([cuts, [cd.n_variants]]).astype(np.int64)
+    segs = list(zip(starts, stops))
+    log.info("chr%s spans %d ploidy segments; scanning per segment",
+             cd.chrom, len(segs))
+
+    parts = []
+    stats = {}
+
+    def compact_seg(s0, s1, gid):
+        return pack.pack_columns(
+            np.ascontiguousarray(cd.packed[s0:s1]),
+            cp.cols_for(gid), cd.n_haplotypes,
+        )
+
+    for s0, s1 in segs:
+        if s1 - s0 < 2:
+            continue
+        gid = int(pgroup[s0])
+        hits = stream_threshold_scan(
+            G_packed=compact_seg(s0, s1, gid),
+            n_haplotypes=cp.n_alleles(gid),
+            pos=pos[s0:s1],
+            measure=config.ld_measure,
+            thres=config.ld_low_thres,
+            max_dist=config.max_dist,
+            exact=True,
+            # per-segment checkpoints (fingerprinted by segment content);
+            # the cross-segment rectangles recompute on resume
+            checkpoint_dir=config.checkpoint_dir,
+            mesh=config.mesh(),
+            multiprocess=multiprocess,
+            resident_key=_resident_key(
+                data, cd, extra=("seg", int(s0), int(s1), gid)
+            ),
+            device=config.device,
+        )
+        for k, v in (hits.stats or {}).items():
+            if isinstance(v, (int, float)):  # phases and counts: summed
+                stats[k] = stats.get(k, 0) + v
+        parts.append((hits.i + s0, hits.j + s0, hits.r_square,
+                      hits.d_prime, hits.r_square_is_int_zero,
+                      hits.d_prime_is_int_zero))
+
+    # cross-segment rectangles (i from the later segment, j from the
+    # earlier one, preserving i > j), restricted to the max_dist corner.
+    # Two-slot pipeline: pulling job k+1 from the generator ISSUES its
+    # counts (and does its host-side unpackbits repacking) while job k's
+    # exact f64 finish and threshold filter run on the host; the engine
+    # issues on a side stream, so the card works between rectangles.
+    # Loop order is bi -> row block -> earlier segment: each row block
+    # unpacks ONCE, and each earlier segment's packed cohort matrix is
+    # built once and cached.  Under a cooperative multiprocess scan the
+    # rectangle jobs stride across processes (the segment scans above
+    # already split their tiles) and the strided hit parts meet in one
+    # allgather.
+    block = 2048
+    n_proc = 1
+    proc_idx = 0
+    if multiprocess:
+        n_proc = process_count()
+        proc_idx = process_index()
+    rect_parts = []
+    pos32 = pos.astype(np.int32) if config.max_dist is not None else None
+
+    cj_cache = {}
+
+    def seg_packed(ai, gid_j):
+        if ai not in cj_cache:
+            A0, A1 = segs[ai]
+            cj_cache[ai] = pack.pack_columns(
+                np.ascontiguousarray(cd.packed[A0:A1]),
+                cp.cols_for(gid_j), cd.n_haplotypes,
+            )
+        return cj_cache[ai]
+
+    def rect_jobs():
+        job_idx = 0
+        for bi in range(1, len(segs)):
+            B0, B1 = segs[bi]
+            gid_i = int(pgroup[B0])
+            n_i = cp.n_alleles(gid_i)
+            # distance-clipped bounds per earlier segment (positions
+            # ascend): j rows must reach within max_dist of the first i
+            # row, and i rows within max_dist of the last j row
+            ai_infos = []
+            b1_max = B0
+            for ai in range(bi):
+                A0, A1 = segs[ai]
+                gid_j = int(pgroup[A0])
+                n_j = cp.n_alleles(gid_j)
+                a0, a1, b1 = A0, A1, B1
+                if config.max_dist is not None:
+                    a0 = A0 + int(np.searchsorted(
+                        pos[A0:A1], pos[B0] - config.max_dist
+                    ))
+                    b1 = B0 + int(np.searchsorted(
+                        pos[B0:B1], pos[A1 - 1] + config.max_dist,
+                        side="right"
+                    ))
+                    if a0 >= a1 or B0 >= b1:
+                        continue
+                ai_infos.append((ai, gid_j, n_j, a0, a1, b1, A0))
+                b1_max = max(b1_max, b1)
+            for r0 in range(B0, b1_max, block):
+                r1_max = min(r0 + block, b1_max)
+                Ci = np.unpackbits(
+                    pack.pack_columns(
+                        np.ascontiguousarray(cd.packed[r0:r1_max]),
+                        cp.cols_for(gid_i), cd.n_haplotypes,
+                    ), axis=1, count=n_i,
+                ).astype(np.int8)
+                c1_rows_full = Ci.sum(axis=1, dtype=np.int64)
+                for (ai, gid_j, n_j, a0, a1, b1, A0) in ai_infos:
+                    if r0 >= b1:
+                        continue
+                    r1 = min(r1_max, b1)
+                    m = min(n_i, n_j)
+                    Cj_full = seg_packed(ai, gid_j)
+                    for c0 in range(a0, a1, 4 * block):
+                        c1_stop = min(c0 + 4 * block, a1)
+                        if config.max_dist is not None and (
+                            pos[c1_stop - 1] < pos[r0] - config.max_dist
+                        ):
+                            continue
+                        job_idx += 1
+                        if (job_idx - 1) % n_proc != proc_idx:
+                            continue  # another process owns this one
+                        Cj = np.unpackbits(
+                            Cj_full[c0 - A0:c1_stop - A0], axis=1,
+                            count=n_j,
+                        ).astype(np.int8)
+                        fin = pair_counts_async(
+                            Ci[: r1 - r0, :m], Cj[:, :m],
+                            device=config.device,
+                        )
+                        yield (r0, r1, c0, c1_stop, n_i, n_j, m,
+                               c1_rows_full[: r1 - r0],
+                               Cj.sum(axis=1, dtype=np.int64), fin)
+
+    def finish_rect(job):
+        r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows, c1_cols, fin = job
+        c_ab, _, _ = fin()
+        ex = exact_ld_from_counts(
+            c_ab, c1_rows, c1_cols, m, len1=n_i, len2=n_j,
+        )
+        meas = (
+            ex.r_square
+            if config.ld_measure == "r_square"
+            else ex.d_prime
+        )
+        int_zero = (
+            ex.r_square_is_int_zero
+            if config.ld_measure == "r_square"
+            else ex.d_prime_is_int_zero
+        )
+        rounded = round4(meas)
+        rounded[int_zero] = 0.0
+        keep = rounded >= config.ld_low_thres
+        if config.max_dist is not None:
+            # int32 + in-place abs: the int64 broadcast difference alone
+            # was ~270 MB of transients per rectangle
+            dist = pos32[r0:r1, None] - pos32[None, c0:c1_stop]
+            np.abs(dist, out=dist)
+            keep &= dist <= config.max_dist
+        ii, jj = np.nonzero(keep)
+        if ii.size == 0:
+            return
+        rect_parts.append((
+            (ii + r0).astype(np.int64),
+            (jj + c0).astype(np.int64),
+            ex.r_square[keep], ex.d_prime[keep],
+            ex.r_square_is_int_zero[keep],
+            ex.d_prime_is_int_zero[keep],
+        ))
+
+    # two-slot drive: pulling job k+1 issues it (and does its host
+    # repacking) while job k's finish runs; dispatch_s happens under the
+    # device's work
+    rect_stats = {"rect_dispatch_s": 0.0, "rect_finish_s": 0.0, "rects": 0}
+    pending = None
+    it = rect_jobs()
+    while True:
+        t0 = time.perf_counter()
+        job = next(it, None)
+        rect_stats["rect_dispatch_s"] += time.perf_counter() - t0
+        if pending is not None:
+            t0 = time.perf_counter()
+            finish_rect(pending)
+            rect_stats["rect_finish_s"] += time.perf_counter() - t0
+            rect_stats["rects"] += 1
+        if job is None:
+            break
+        pending = job
+    if rect_stats["rects"]:
+        log.info(
+            "cross-segment rectangles: %d blocks, dispatch %.2fs "
+            "(overlapped), finish %.2fs",
+            rect_stats["rects"], rect_stats["rect_dispatch_s"],
+            rect_stats["rect_finish_s"],
+        )
+    stats.update(rect_stats, segments=len(segs))
+
+    if n_proc > 1:
+        # merge the strided rectangle hits (every process joins the
+        # collective, hit-less ones included, with the same dtypes); the
+        # segment-scan parts above are already identical on every process
+        from ld_tools_tpu_torch.ops.ld_stream import _allgather_hits
+
+        names = ("i", "j", "r2", "dp", "r2_iz", "dp_iz")
+        if rect_parts:
+            arrs = {
+                name: np.concatenate([p[k] for p in rect_parts])
+                for k, name in enumerate(names)
+            }
+        else:
+            arrs = {
+                "i": np.zeros(0, np.int64), "j": np.zeros(0, np.int64),
+                "r2": np.zeros(0), "dp": np.zeros(0),
+                "r2_iz": np.zeros(0, bool), "dp_iz": np.zeros(0, bool),
+            }
+        g = _allgather_hits(arrs, ("r2", "dp", "r2_iz", "dp_iz"))
+        parts.append((g["i"], g["j"], g["r2"], g["dp"], g["r2_iz"],
+                      g["dp_iz"]))
+    else:
+        parts.extend(rect_parts)
+
+    if parts:
+        i = np.concatenate([p[0] for p in parts])
+        j = np.concatenate([p[1] for p in parts])
+        r2 = np.concatenate([p[2] for p in parts])
+        dp = np.concatenate([p[3] for p in parts])
+        r2_iz = np.concatenate([p[4] for p in parts])
+        dp_iz = np.concatenate([p[5] for p in parts])
+        order = np.lexsort((j, i))
+        return ScanHits(
+            i=i[order], j=j[order], r_square=r2[order], d_prime=dp[order],
+            r_square_is_int_zero=r2_iz[order],
+            d_prime_is_int_zero=dp_iz[order], exact=True, stats=stats,
+        )
+    z = np.zeros(0)
+    return ScanHits(
+        i=np.zeros(0, np.int64), j=np.zeros(0, np.int64),
+        r_square=z, d_prime=z,
+        r_square_is_int_zero=np.zeros(0, bool),
+        d_prime_is_int_zero=np.zeros(0, bool), exact=True, stats=stats,
     )
 
 
@@ -139,40 +400,43 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
         else np.unique(cd.pgroup)
     )
     if chrom_groups.size > 1:
-        _scan_mixed_chromosome(data, cd, cp, config)
-    # single ploidy profile: the scan consumes the profile's live bit
-    # columns directly (full-diploid-cohort runs are zero-copy; subsets
-    # and haploid profiles repack their bit columns once)
-    gid = int(chrom_groups[0]) if chrom_groups.size else 0
-    cols = cp.cols_for(gid)
-    if cols.size == cd.n_haplotypes and np.array_equal(
-        cols, np.arange(cd.n_haplotypes)
-    ):
-        gp, n_hap = cd.packed, cd.n_haplotypes
+        hits = _scan_mixed_chromosome(data, cd, cp, config,
+                                      multiprocess=multiprocess)
     else:
-        gp = pack.pack_columns(cd.packed, cols, cd.n_haplotypes)
-        n_hap = cols.size
-    log.info(
-        "scanning chr%s: %d variants x %d haplotypes (bitpacked), "
-        "%s >= %s%s on %s",
-        chrom, gp.shape[0], n_hap, config.ld_measure, config.ld_low_thres,
-        f", dist <= {config.max_dist}" if config.max_dist else "",
-        config.device,
-    )
-    hits = stream_threshold_scan(
-        G_packed=gp,
-        n_haplotypes=n_hap,
-        pos=cd.pos,
-        measure=config.ld_measure,
-        thres=config.ld_low_thres,
-        max_dist=config.max_dist,
-        exact=True,
-        checkpoint_dir=config.checkpoint_dir,
-        mesh=config.mesh(),
-        multiprocess=multiprocess,
-        resident_key=_resident_key(data, cd),
-        device=config.device,
-    )
+        # single ploidy profile: the scan consumes the profile's live bit
+        # columns directly (full-diploid-cohort runs are zero-copy;
+        # subsets and haploid profiles repack their bit columns once)
+        gid = int(chrom_groups[0]) if chrom_groups.size else 0
+        cols = cp.cols_for(gid)
+        if cols.size == cd.n_haplotypes and np.array_equal(
+            cols, np.arange(cd.n_haplotypes)
+        ):
+            gp, n_hap = cd.packed, cd.n_haplotypes
+        else:
+            gp = pack.pack_columns(cd.packed, cols, cd.n_haplotypes)
+            n_hap = cols.size
+        log.info(
+            "scanning chr%s: %d variants x %d haplotypes (bitpacked), "
+            "%s >= %s%s on %s",
+            chrom, gp.shape[0], n_hap, config.ld_measure,
+            config.ld_low_thres,
+            f", dist <= {config.max_dist}" if config.max_dist else "",
+            config.device,
+        )
+        hits = stream_threshold_scan(
+            G_packed=gp,
+            n_haplotypes=n_hap,
+            pos=cd.pos,
+            measure=config.ld_measure,
+            thres=config.ld_low_thres,
+            max_dist=config.max_dist,
+            exact=True,
+            checkpoint_dir=config.checkpoint_dir,
+            mesh=config.mesh(),
+            multiprocess=multiprocess,
+            resident_key=_resident_key(data, cd),
+            device=config.device,
+        )
     stats = dict(hits.stats or {})
     if not write:
         return ScanReport(chrom=chrom, path=None, n_hits=int(len(hits.i)),

@@ -12,6 +12,18 @@ import contextlib
 
 import torch
 
+# the tools' -E choice -> torch device: the card, or the plain PyTorch
+# versions on the CPU
+ENGINE_DEVICES = {"cuda": "cuda", "torch": "cpu"}
+
+
+def engine_device(engine) -> str:
+    """The device of a tool's ``-E`` choice (``cuda`` or ``torch``)."""
+    if engine not in ENGINE_DEVICES:
+        raise ValueError(f"engine must be one of {sorted(ENGINE_DEVICES)}, "
+                         f"got {engine!r}")
+    return ENGINE_DEVICES[engine]
+
 
 def resolve_device(device="cuda") -> torch.device:
     """The torch.device for ``device`` ("cuda", "cuda:N" or "cpu")."""

@@ -82,6 +82,59 @@ def test_the_c_sources_define_each_bound_entry_point_once():
         glob.glob(os.path.join(_cuda_build.CSRC, "*.cu"))))
 
 
+def test_no_source_defines_the_retired_packed_triangle_entry():
+    """K2 runs as ld_block_kernel<FORM_BITS, STORE_TRIANGLE> through
+    ldk_block_triangle: the warp-level MMA entry point ldk_triangle and
+    its source are gone from the bindings and from csrc/, and no source
+    issues mma.sync."""
+    assert "ldk_triangle" not in _cuda_build._SIGNATURES
+    assert "ldk_triangle" not in _c_prototypes()
+    assert not os.path.exists(os.path.join(_cuda_build.CSRC, "ld_kernels.cu"))
+    for path in _cuda_build.SOURCES + _cuda_build.HEADERS:
+        with open(path) as fh:
+            assert "mma.sync" not in fh.read(), path
+
+
+def test_block_triangle_takes_the_bit_plane_form():
+    """ldk_block_triangle launches the FORM_BITS instance: the form
+    check admits it and the dispatch names launch_block<FORM_BITS,
+    STORE_TRIANGLE>."""
+    with open(os.path.join(_cuda_build.CSRC, "ld_block_sm90.cu")) as fh:
+        src = fh.read()
+    body = src[src.index("int ldk_block_triangle("):
+               src.index("int ldk_block_sweep(")]
+    assert "form != FORM_BITS" in body
+    assert "launch_block<FORM_BITS, STORE_TRIANGLE>" in body
+
+
+def test_a_library_built_from_another_set_of_sources_is_stale(tmp_path,
+                                                               monkeypatch):
+    """The rebuild rule notices a deleted or added source, not only a
+    newer one: a library left from an older tree (with a source since
+    deleted) is rebuilt even though it is newer than every file."""
+    src = tmp_path / "a.cu"
+    hdr = tmp_path / "a.cuh"
+    for f in (src, hdr):
+        f.write_text("//\n")
+    lib = tmp_path / "lib.so"
+    monkeypatch.setattr(_cuda_build, "SOURCES", (str(src),))
+    monkeypatch.setattr(_cuda_build, "HEADERS", (str(hdr),))
+    monkeypatch.setattr(_cuda_build, "LIB", str(lib))
+    monkeypatch.setattr(_cuda_build, "MANIFEST", str(lib) + ".sources")
+    assert _cuda_build._stale()                       # no library
+    lib.write_text("")
+    assert _cuda_build._stale()                       # no manifest
+    (tmp_path / "lib.so.sources").write_text("a.cu\nold.cu\na.cuh\n")
+    assert _cuda_build._stale()                       # another set
+    (tmp_path / "lib.so.sources").write_text(_cuda_build._manifest())
+    os.utime(src, (1, 1))
+    os.utime(hdr, (1, 1))
+    assert not _cuda_build._stale()                   # up to date
+    os.utime(hdr, None)
+    os.utime(lib, (2, 2))
+    assert _cuda_build._stale()                       # a newer header
+
+
 @pytest.mark.parametrize("entry", sorted(_cuda_build._SIGNATURES))
 def test_ctypes_signatures_match_the_c_prototypes(entry):
     """Each entry point's ctypes argtypes have the count and the pointer /
@@ -303,7 +356,7 @@ _ROUTES = {
     "ld_stage_blocks": ("ldk_block_triangle", _cuda_build.FORM_S8),
     "ld_triangle_blocks_bf16": ("ldk_block_triangle", _cuda_build.FORM_BF16),
     "ld_triangle_blocks_tf32": ("ldk_block_triangle", _cuda_build.FORM_TF32),
-    "ld_triangle_blocks_packed": ("ldk_triangle", _cuda_build.FORM_BITS),
+    "ld_triangle_blocks_packed": ("ldk_block_triangle", _cuda_build.FORM_BITS),
     "ld_band_sweep_blocks": ("ldk_block_sweep", _cuda_build.FORM_S8),
     "ld_band_sweep_blocks_packed": ("ldk_block_sweep", _cuda_build.FORM_BITS),
 }
@@ -313,10 +366,10 @@ _ROUTES = {
 def test_each_site_launches_its_instance(site_name, monkeypatch):
     """Through its public entry, each triangle and sweep site reaches the
     library entry point of its instance with its form: K1 / K8 and the
-    bf16 and tf32 sites (K1b) ldk_block_triangle, the dense and packed
-    sweeps (K3, K4) ldk_block_sweep, each with the persistent grid
-    min(SMs, tiles); only the packed triangle (K2) reaches the mma.sync
-    ldk_triangle.  _launch, the card check and the SM count are faked."""
+    bf16 and tf32 sites (K1b) and the packed triangle (K2)
+    ldk_block_triangle, the dense and packed sweeps (K3, K4)
+    ldk_block_sweep, each with the persistent grid min(SMs, tiles).
+    _launch, the card check and the SM count are faked."""
     calls = []
 
     def launch(entry, dev, *args):
@@ -344,14 +397,11 @@ def test_each_site_launches_its_instance(site_name, monkeypatch):
              epilogue="fast", want_dprime=False)
     ((got_entry, args),) = calls
     assert got_entry == entry
-    assert (entry == "ldk_triangle") == (site_name ==
-                                         "ld_triangle_blocks_packed")
     # the prototype's arguments but the stream, which _launch appends
     assert len(args) == len(_cuda_build._SIGNATURES[entry]) - 1
     at_form = 16 if entry == "ldk_block_sweep" else 12
     assert args[at_form] == form
-    if entry != "ldk_triangle":
-        assert args[at_form + 1] == min(132, lk.block_tiles(nb, block, block))
+    assert args[at_form + 1] == min(132, lk.block_tiles(nb, block, block))
     assert site.launches == 1
     assert {f.__name__ for f in lk.LAUNCH_SITES} == set(_ROUTES) | {
         "ld_band_count", "ld_band_count_packed", "ld_band_count_sharded"}

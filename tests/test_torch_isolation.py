@@ -1,6 +1,7 @@
 """The port stands alone: no JAX, nothing of ld_tools_tpu, cuda by default."""
 
 import ast
+import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -34,6 +35,9 @@ def test_importing_every_module_pulls_in_no_jax():
         "             if k == 'jax' or k.startswith('jax.')\n"
         "             or k == 'ld_tools_tpu' or k.startswith('ld_tools_tpu.'))\n"
         "assert not bad, bad\n"
+        "# ld_lite renders with tabulate, which the card's machine may lack:\n"
+        "# only the render step imports it\n"
+        "assert 'tabulate' not in sys.modules\n"
         "print(len(mods))\n"
     )
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -61,6 +65,20 @@ def test_the_walk_covers_the_multi_device_path():
     assert {
         "ld_tools_tpu_torch.ops.ld_math", "ld_tools_tpu_torch.parallel.sweep",
         "ld_tools_tpu_torch.utils.distributed",
+    } <= set(_port_modules())
+
+
+def test_the_walk_covers_the_engine_and_its_tools():
+    """... and the engine, ld_lite and ld_area with their CLIs and entry
+    points."""
+    assert {
+        "ld_tools_tpu_torch.ops.engine", "ld_tools_tpu_torch.tools.lite",
+        "ld_tools_tpu_torch.tools.area", "ld_tools_tpu_torch.cli._shared",
+        "ld_tools_tpu_torch.cli.ld_lite_cli_en",
+        "ld_tools_tpu_torch.cli.ld_lite_cli_ru",
+        "ld_tools_tpu_torch.cli.ld_area_cli_en",
+        "ld_tools_tpu_torch.cli.ld_area_cli_ru",
+        "ld_tools_tpu_torch.ld_lite", "ld_tools_tpu_torch.ld_area",
     } <= set(_port_modules())
 
 
@@ -226,7 +244,7 @@ _SITE_ENTRIES = {
                  "FORM_BF16"),
     "K1b-tf32": ("ld_triangle_blocks_tf32", "ldk_block_triangle",
                  "FORM_TF32"),
-    "K2": ("ld_triangle_blocks_packed", "ldk_triangle", "FORM_BITS"),
+    "K2": ("ld_triangle_blocks_packed", "ldk_block_triangle", "FORM_BITS"),
     "K3": ("ld_band_sweep_blocks", "ldk_block_sweep", "FORM_S8"),
     "K4": ("ld_band_sweep_blocks_packed", "ldk_block_sweep", "FORM_BITS"),
 }
@@ -358,11 +376,12 @@ def test_count_launch_passes_the_persistent_grid(n_blocks, block, grid,
     (3, 512, 24),       # 4 x 2 tiles of 128 x 256 a block
     (3, 1000, 96),      # 8 x 4 tiles of 128 x 256 a block
 ])
-@pytest.mark.parametrize("kernel", ["K1", "K1b-bf16", "K1b-tf32", "K3",
-                                    "K4"])
+@pytest.mark.parametrize("kernel", ["K1", "K1b-bf16", "K1b-tf32", "K2",
+                                    "K3", "K4"])
 def test_block_launch_passes_the_persistent_grid(kernel, n_blocks, block,
                                                  grid, monkeypatch):
-    """ld_block_kernel (K1 / K8 and K1b: the triangle; K3, K4: the sweep)
+    """ld_block_kernel (K1 / K8, K2 and K1b: the triangle; K3, K4: the
+    sweep)
     walks blocks x 128 x block_tile_n tiles in min(SMs, tiles) persistent
     thread blocks: the launch hands the library every argument of its
     prototype, the form and the grid among them, and bumps the site's
@@ -450,12 +469,39 @@ def test_scan_unknown_resident_raises(resident):
         stream_threshold_scan(G, thres=0.5, device="cpu", resident=resident)
 
 
-def test_mixed_ploidy_scan_raises():
-    from ld_tools_tpu_torch.tools.scan import _scan_mixed_chromosome
+def test_mixed_ploidy_scan_raises(tmp_path, monkeypatch):
+    """The mixed-ploidy scan runs on the CPU when asked; asked for the
+    card with no card it raises, and nothing runs on the CPU in its
+    place."""
+    import numpy as np
 
-    with pytest.raises(NotImplementedError, match="queue 5"):
-        _scan_mixed_chromosome(None, types.SimpleNamespace(chrom="X"), None,
-                               None)
+    from ld_tools_tpu_torch.ingest import prep as torch_prep
+    from ld_tools_tpu_torch.ingest import synth
+    from ld_tools_tpu_torch.tools.common import DataConfig
+    from ld_tools_tpu_torch.tools.scan import ScanConfig, _scan_mixed_chromosome
+
+    d = str(tmp_path)
+    rng = np.random.default_rng(77)
+    panel = synth.make_panel(8, rng)
+    panel[0] = (panel[0][0], panel[0][1], panel[0][2], "male")
+    synth.write_panel(os.path.join(d, "samples.txt"), panel)
+    GX, hapX = synth.make_chrx_layout(rng, 12, [r[3] for r in panel],
+                                      par_bounds=(0.25, 0.75))
+    synth.write_vcf(os.path.join(d, "X.vcf.gz"), "X", [r[0] for r in panel],
+                    GX, haploid_masks=hapX)
+    torch_prep.prep_intgen_data(d)
+    data = DataConfig.resolve(d, True, "both", "all")
+    cd = data.store().chrom("X")
+    cp = cd.cohort_ploidy(data.sample_names)
+    config = ScanConfig(chroms=("X",), trg_dir_path=d, ld_measure="r_square",
+                        ld_low_thres=0.2, max_dist=None)
+    assert config.device == "cuda"
+    assert _scan_mixed_chromosome(
+        data, cd, cp, dataclasses.replace(config, device="cpu")).stats[
+            "segments"] == 3
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        _scan_mixed_chromosome(data, cd, cp, config)
 
 
 def test_wrappers_refuse_other_devices():
