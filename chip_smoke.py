@@ -56,6 +56,13 @@ Phases, each of which exits non-zero on any failure:
             count must rise (its counts ran on the card: torch._int_mm in
             ops/engine.py) and sampled queries' files must equal a
             recount with the port's plain versions;
+   triangle ld_triangle (``ld_tools_tpu_torch.ld_triangle.main``) on the
+            chr21 store: 500 and 2,000 rsIDs with -o both -j on -p 3
+            threads (the per-cell hover path and the columnar heatmap),
+            then 10,000 with -o table (the streamed table over
+            ResidentCounts, 5 row blocks); the engine must have counted on
+            the card; every row of the 500-row table and 200 sampled rows
+            of each larger one must equal an f64 recount from the store;
    sharded  K7 (``ld_band_count_sharded``: K5's or K6's kernel once per
             shard, each shard on its own stream) over [cuda:0] * 4 against
             its plain version on the ragged rows (both forms, with and
@@ -70,27 +77,42 @@ Phases, each of which exits non-zero on any failure:
             TSV both times; and the replicated, ring and trapezoid sweeps
             at 10,240 x 5,008 over [cuda:0] * 4, each equal to the
             one-device sweep, its r^2 within 2e-5 of the f64 finish at
-            4,000 sampled pairs and of K1's exact r^2;
+            4,000 sampled pairs and of K1's exact r^2; then the ring and
+            the trapezoid across two gloo processes on the card (this
+            script's ``--sweep-worker`` role; local shards [cuda:0,
+            cuda:0] in each, four over the group), each process's row
+            bands equal to its one-device sweep with torch.equal;
+   entry    the entry points of ``ld_tools_tpu_torch.entry``:
+            entry()'s LD step on the card within 1e-6 of the CPU's, and
+            dryrun_multichip(4) over [cuda:0] * 4;
    mixed    ld_scan on a chrX store of the chr21 row count (102,400
             variants x 2,504 samples, males haploid outside the PAR bands:
             three ploidy segments) with -w 1000000 in both resident
             layouts: K5/K3 (int8) or K6/K4 (packed) on the segments, the
             engine on the cross-segment rectangles, the same TSV bytes,
             sampled hits inside and across the segments and pairs across
-            the boundaries against a recount on the card;
+            the boundaries against a recount on the card; then
+            ld_triangle on that store: 300 and 1,000 rsIDs straddling the
+            first PAR bound, -o both (the grouped engine on the per-cell
+            path; the columnar heatmap with int32 codes), sampled rows
+            against the recount;
 5. parity   a 10,240-variant store: the -E cuda TSVs of both layouts must
             be byte-identical to the -E torch TSV (plain versions, CPU);
             so must ld_area's files in each file type, the scan of a
             10,240-variant chrX store, and ld_lite on an autosome pair
             and a chrX pair across the PAR boundary (its table where
-            tabulate is installed, else its values);
+            tabulate is installed, else its values); and ld_triangle's
+            files of the chr21 (500 and 2,000 rsIDs) and chrX runs;
 6. bench    the port's measurement entry points, each as ``python -m``
             must exit 0: the headline sweep (``ld_tools_tpu_torch.bench``,
             one JSON line with bench.py's metric and keys), the K8 stage
             split (``bench.microkernels``: K8's launches on its path), the
             fast triangle variants (``bench.kernels --only fast``) and
-            suite configs 5, 1 (ld_lite) and 3 (ld_area: its counts on
-            the card) with their artifact.  Each reports its own launch
+            suite configs 5, 1 (ld_lite), 3 (ld_area), 2, 6 and 6c
+            (ld_triangle: the 500-variant tool run, the 10,000-variant
+            table with the 2,000-variant hover microbenchmark, the
+            10,000-variant columnar heatmap; the engine's counts on the
+            card in each) with their artifact.  Each reports its own launch
             counts, and each must have launched its kernels and no other.
 
 K8 (the staged triangle kernel, ``ld_stage_blocks``: K1's kernel at four
@@ -101,8 +123,9 @@ timed there (the stage split).  So are K1, K1b and K2 at the 512- and
 200- and 1,000-row blocks, which their tile does not divide.
 
 It ends with a JSON line of the build time, the scans' phases and launch
-counts, ld_area's and the chrX scan's phases and the headline record, a ``kernels`` JSON line, the nvidia-smi
-line and, last, the device JSON line.  It needs the repository around it and a CUDA card.
+counts, ld_area's, ld_triangle's and the chrX scan's phases, the sweeps',
+the entry points' and the headline record, a ``kernels`` JSON line, the
+nvidia-smi line and, last, the device JSON line.  It needs the repository around it and a CUDA card.
 """
 
 from __future__ import annotations
@@ -1223,14 +1246,16 @@ def _check_layout_launches(tag, launches, packed):
               f"scan ({tag}) launched {other} {launches[other]} times")
 
 
-def _recount(gp, i, j):
+def _recount(gp, i, j, c1=None):
     """f64 exact r^2 / D' strings and rounded r^2 for pairs (i, j), from
-    popcounts of the packed genotypes (the port's exact finisher)."""
+    popcounts of the packed genotypes (the port's exact finisher); ``c1``,
+    where given, is ``pack.popcounts(gp)`` computed once."""
     from ld_tools_tpu_torch.ingest import pack
     from ld_tools_tpu_torch.ops.exact import (exact_ld_elementwise,
                                               format_rounded, round4)
 
-    c1 = pack.popcounts(gp)
+    if c1 is None:
+        c1 = pack.popcounts(gp)
     cab = pack.popcounts(np.bitwise_and(gp[i], gp[j]))
     ex = exact_ld_elementwise(cab, c1[i], c1[j], N_HAP)
     r2_round = round4(ex.r_square)
@@ -1409,10 +1434,12 @@ def _free_port():
 
 
 def _run_pair(args, timeout=300):
-    """``python -m ld_tools_tpu_torch.ld_scan args`` as ranks 0 and 1 of a
-    gloo group on this card (torchrun's variables), from the repository
-    root; both must exit 0.  Returns each rank's (stderr, launch report)
-    and the wall seconds.  Kills both if either fails or hangs."""
+    """``python args`` (``-m ld_tools_tpu_torch.ld_scan ...``, or this
+    script in a worker role) as ranks 0 and 1 of a gloo group on this card
+    (torchrun's variables), from the repository root; both must exit 0
+    and print one launch report.  Returns each rank's (stderr, launch
+    report, stdout) and the wall seconds.  Kills both if either fails or
+    hangs."""
     here = os.path.dirname(os.path.abspath(__file__))
     port = str(_free_port())
     procs = []
@@ -1423,9 +1450,8 @@ def _run_pair(args, timeout=300):
                        MASTER_PORT=port, WORLD_SIZE="2", RANK=str(rank),
                        LOCAL_RANK=str(rank), TPU_LD_DIST_TIMEOUT_S="240")
             procs.append(subprocess.Popen(
-                [sys.executable, "-m", "ld_tools_tpu_torch.ld_scan", *args],
-                cwd=here, env=env, stdout=subprocess.PIPE,
-                stderr=subprocess.PIPE, text=True))
+                [sys.executable, *args], cwd=here, env=env,
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
         outs = [p.communicate(timeout=timeout) for p in procs]
     finally:
         for p in procs:
@@ -1434,14 +1460,14 @@ def _run_pair(args, timeout=300):
                 p.communicate()
     secs = time.perf_counter() - t0
     res = []
-    for rank, (p, (_, err)) in enumerate(zip(procs, outs)):
-        check(p.returncode == 0, f"cooperative ld_scan rank {rank} exited "
+    for rank, (p, (out, err)) in enumerate(zip(procs, outs)):
+        check(p.returncode == 0, f"{args[:2]} rank {rank} exited "
               f"{p.returncode}:\n{err[-3000:]}")
         reports = [json.loads(ln) for ln in err.splitlines()
                    if ln.startswith('{"launches"')]
         check(len(reports) == 1, f"rank {rank} printed {len(reports)} "
               "launch reports")
-        res.append((err, reports[0]["launches"]))
+        res.append((err, reports[0]["launches"], out))
     return res, secs
 
 
@@ -1615,7 +1641,8 @@ def phase_sharded(work, stores, gp, pos, results):
     ckpt = os.path.join(work, "coop_ckpt")
     for tag in ("cooperative", "resume"):
         out = os.path.join(work, f"coop_{tag}")
-        ranks, secs = _run_pair(["-C", "21", "-D", stores["chr21"], "-t", out,
+        ranks, secs = _run_pair(["-m", "ld_tools_tpu_torch.ld_scan", "-C",
+                                 "21", "-D", stores["chr21"], "-t", out,
                                  "-z", "0.8", "-f", "-E", "cuda", "-d", "2",
                                  "-k", ckpt])
         (name,) = os.listdir(out)  # rank 0 alone writes
@@ -1623,7 +1650,7 @@ def phase_sharded(work, stores, gp, pos, results):
             check(fh.read() == solo, f"the {tag} run's TSV differs from the "
                   "single-process TSV")
         phases = []
-        for rank, (err, launches) in enumerate(ranks):
+        for rank, (err, launches, _) in enumerate(ranks):
             # the scan's own phase line (ops/ld_stream.py logs it)
             (line,) = [ln for ln in err.splitlines() if "scan phases: " in ln]
             phases.append(dict(kv.split("=", 1) for kv in
@@ -1634,11 +1661,10 @@ def phase_sharded(work, stores, gp, pos, results):
             else:
                 check(not any(launches.values()) and "resumed batch" in err,
                       f"resume rank {rank} launched {launches}")
-        summary[tag] = dict(seconds=secs, launches=[l for _, l in ranks],
+        summary[tag] = dict(seconds=secs, launches=[r[1] for r in ranks],
                             phases=phases)
         log(f"{tag} ld_scan (2 processes, gloo, -d 2 -k, one card): "
             f"{secs:.2f}s; rank 0's TSV is the single-process TSV")
-    shutil.rmtree(stores["chr21"], ignore_errors=True)
 
     # the all-pairs sweeps against their one-device run
     G = triangle_host()
@@ -1689,7 +1715,111 @@ def phase_sharded(work, stores, gp, pos, results):
           f"{SWEEP_TOL})")
     del one_r2, one_dp, r2_k1
     torch.cuda.empty_cache()
+    summary["sweeps_two_processes"] = sweeps_two_processes(v1)
     return summary
+
+
+def sweep_worker():
+    """One rank of the sweeps across processes (``chip_smoke.py
+    --sweep-worker``, started by :func:`sweeps_two_processes`): two local
+    shards on this process's card, four over the gloo group; the ring's
+    and the trapezoid's bands on the headline's rows against this
+    process's one-device sweep, with torch.equal.  Prints one JSON line
+    and the launch report."""
+    import torch
+
+    from ld_tools_tpu_torch.bench.common import log_launches
+    from ld_tools_tpu_torch.parallel import (all_pairs_ring,
+                                             all_pairs_trapezoid, make_mesh)
+    from ld_tools_tpu_torch.parallel.sweep import ProcessMesh
+    from ld_tools_tpu_torch.utils.distributed import (initialize_if_needed,
+                                                      process_index)
+
+    check(initialize_if_needed(), "the sweep worker joined no group")
+    mesh = make_mesh(2, "cuda")
+    check(isinstance(mesh, ProcessMesh) and len(mesh) == 4,
+          f"the mesh over two processes is {mesh}")
+    own = torch.device(mesh.devices[mesh.owners.index(mesh.rank)])
+    G = triangle_host()
+    out = dict(rank=process_index(), owners=list(mesh.owners),
+               devices=list(mesh.devices), sweeps={})
+    for name, fn in (("ring", all_pairs_ring),
+                     ("trapezoid", all_pairs_trapezoid)):
+        one_r2, one_dp = fn(G, mesh=[own])
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r2s, dps = fn(G, mesh=mesh)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        equal = all(b.rows == c.rows and torch.equal(b.data, one_r2[b.rows])
+                    and torch.equal(c.data, one_dp[c.rows])
+                    for b, c in zip(r2s, dps))
+        out["sweeps"][name] = dict(
+            seconds=secs, equal=equal,
+            rows=[[b.rows.start, b.rows.stop] for b in r2s])
+        del one_r2, one_dp, r2s, dps
+        torch.cuda.empty_cache()
+    print(json.dumps(out), flush=True)
+    log_launches()
+
+
+def sweeps_two_processes(v):
+    """The ring and the trapezoid across two gloo processes on this card
+    (each with local shards [cuda:0, cuda:0]: four shards over the group,
+    a block crossing the process boundary at every step): each rank's
+    bands must equal its one-device sweep, and the ranks' bands must
+    cover the v rows once."""
+    here = os.path.abspath(__file__)
+    ranks, secs = _run_pair([here, "--sweep-worker"])
+    outs = [json.loads(out.strip().splitlines()[-1]) for _, _, out in ranks]
+    summary = {"wall_s": secs}
+    for name in ("ring", "trapezoid"):
+        for r in outs:
+            check(r["owners"] == [0, 0, 1, 1] and r["sweeps"][name]["equal"],
+                  f"the {name} sweep over two processes: rank {r['rank']}'s "
+                  "bands differ from the one-device sweep")
+        rows = sorted(tuple(b) for r in outs for b in r["sweeps"][name]["rows"])
+        check(rows[0][0] == 0 and rows[-1][1] == v and all(
+            a[1] == b[0] for a, b in zip(rows, rows[1:])),
+            f"the {name} sweep's bands over two processes: {rows}")
+        summary[name] = [r["sweeps"][name]["seconds"] for r in outs]
+    log(f"sweeps across two processes ({v} x {N_HAP}, 4 shards: [cuda:0, "
+        f"cuda:0] in each, gloo between them): ring "
+        f"{max(summary['ring']):.3f}s, trapezoid "
+        f"{max(summary['trapezoid']):.3f}s (the slower rank), {secs:.1f}s "
+        "with the processes' start; every band equals the one-device "
+        "sweep")
+    return summary
+
+
+def phase_entry():
+    """The entry points of ld_tools_tpu_torch.entry on the card: entry()'s LD step against the
+    same step on the CPU (r^2 and D' within 1e-6), and
+    dryrun_multichip(4) over make_mesh(4), [cuda:0] * 4 on one card."""
+    import torch
+
+    from ld_tools_tpu_torch.entry import dryrun_multichip, entry
+    from ld_tools_tpu_torch.parallel import make_mesh
+
+    fn, args = entry()
+    check(args[0].is_cuda, "entry() did not put its rows on the card")
+    got = fn(*args)
+    torch.cuda.synchronize()
+    fn_cpu, args_cpu = entry("cpu")
+    want = fn_cpu(*args_cpu)
+    errs = [float((g.cpu() - w).abs().max()) for g, w in zip(got, want)]
+    check(max(errs) <= 1e-6, f"entry(): the card's r^2 / D' differ from the "
+          f"CPU's by {errs}")
+    mesh = make_mesh(4)
+    check(len(mesh) == 4 and len(set(mesh)) == torch.cuda.device_count(),
+          f"make_mesh(4) on {torch.cuda.device_count()} card(s) is {mesh}")
+    t0 = time.perf_counter()
+    dryrun_multichip(4)
+    secs = time.perf_counter() - t0
+    log(f"entry: ld_step on 1,024 x 5,120 on the card, r^2 / D' within "
+        f"{errs[0]:.3g} / {errs[1]:.3g} of the CPU's; dryrun_multichip(4) "
+        f"over {[str(d) for d in mesh]} passed in {secs:.2f}s")
+    return dict(max_abs_err=errs, dryrun_s=secs)
 
 
 # ---- the engine's tools: ld_area and the mixed-ploidy scan ----------------
@@ -1814,6 +1944,197 @@ def phase_area(work, data, gp, pos):
                 **stats)
 
 
+# ---- ld_triangle ----------------------------------------------------------
+
+# the chr21 store's rows in each source file: 500 (the per-cell hover path;
+# the reference's readable cap, its README.md:74), 2,000 (past the cap: the
+# columnar heatmap) and 10,000 (BASELINE metric #2: the streamed table
+# over ResidentCounts, 5 row blocks of 2,048)
+TRI_ROWS = {"t500": range(1000, 1500), "t2000": range(20_000, 40_000, 10),
+            "t10k": range(50_000, 60_000)}
+TRI_SAMPLED = 200  # rows of the larger files held against the recount
+
+
+def _triangle_sources(src, names, rows_of):
+    """One source file of rsIDs per name, the rows ``rows_of[name]``."""
+    os.makedirs(src, exist_ok=True)
+    for name in names:
+        with open(os.path.join(src, f"{name}.txt"), "w") as fh:
+            fh.write("\n".join(rsid_of(r) for r in rows_of[name]) + "\n")
+
+
+def _triangle_rows(path, n_rows, seed):
+    """(store rows of the matrix, [(row index, its cells)]) of a triangle
+    TSV: every row, or ``n_rows`` sampled ones, read line by line (the
+    10,000-row table is 0.4 GB)."""
+    with open(path) as fh:
+        head = [fh.readline() for _ in range(4)]
+        rsids = head[2].rstrip("\n").split("\t")[2:]
+        rows = np.array([int(r[2:]) - 100_000 for r in rsids])
+        n = len(rsids)
+        pick = (set(range(n)) if n_rows is None else set(
+            np.random.default_rng(seed).choice(n, n_rows, replace=False)))
+        picked = []
+        for i, line in enumerate(fh):
+            if i in pick:
+                cells = line.rstrip("\n").split("\t")
+                check(cells[0] == rsids[i] and len(cells) == n + 2,
+                      f"{path}: row {i} is {cells[:2]} with {len(cells)} "
+                      "fields")
+                picked.append((i, cells[2:]))
+    check(len(picked) == len(pick), f"{path}: {len(picked)} rows read")
+    return rows, picked
+
+
+def _check_triangle_tsv(path, recount, n_rows=None, seed=0):
+    """A triangle TSV (no threshold) against ``recount(i rows, j rows) ->
+    r^2 strings``: below the diagonal each cell is the recount's, on and
+    above it '0'.  Returns the number of cells checked."""
+    rows, picked = _triangle_rows(path, n_rows, seed)
+    cells_checked = 0
+    for i, cells in picked:
+        want = recount(np.full(i, rows[i]), rows[:i]) if i else []
+        check(list(cells[:i]) == list(want) and all(
+            c == "0" for c in cells[i:]),
+            f"{path}: row {i} differs from the f64 recount")
+        cells_checked += len(cells)
+    return cells_checked
+
+
+def _figure(path):
+    """The figure JSON a heatmap HTML embeds."""
+    with open(path) as fh:
+        html = fh.read()
+    m = re.search(r"const FIG = (\{.*?\});\n", html, re.S)
+    check(m is not None, f"{path}: no figure")
+    return json.loads(m.group(1))
+
+
+def _run_triangle(tag, src, data, out, extra):
+    """``ld_triangle.main`` on the card: returns (matrices, wall seconds,
+    phase sums, engine launches); the engine must have counted on the
+    card and no kernel of ops/ld_kernels launched."""
+    from ld_tools_tpu_torch import ld_triangle
+    from ld_tools_tpu_torch.ops import engine
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+
+    lk.reset_launches()
+    engine.reset_launches()
+    stats = {}
+    t0 = time.perf_counter()
+    n = ld_triangle.main(["-S", src, "-D", data, "-t", out, "-E", "cuda",
+                          *extra], stats)
+    wall = time.perf_counter() - t0
+    launches = engine.count_on_device.launches
+    kernels = sum(_launches().values())
+    check(launches > 0, f"ld_triangle ({tag}) never counted on the card")
+    check(kernels == 0, f"ld_triangle ({tag}) launched {kernels} kernels")
+    log(f"ld_triangle ({tag}, {' '.join(extra)}): {n} matrices in "
+        f"{wall:.2f}s; engine launches {launches}; phases (summed over the "
+        "threads) " + " ".join(f"{k}={v:.3f}" for k, v in stats.items()
+                               if k != "matrices"))
+    return n, wall, stats, launches
+
+
+def phase_triangle(work, data, gp):
+    """ld_triangle at chr21 width on the chr21 store: the 500- and
+    2,000-rsID files with -o both -j on -p 3 threads (the per-cell path
+    and the columnar heatmap), then the 10,000-rsID file with -o table
+    (the streamed table over ResidentCounts).  Every row of the 500-row
+    table and 200 sampled rows of each larger one must equal an f64
+    recount from the store.  Returns the summary and the -E cuda run that
+    the parity phase repeats with -E torch."""
+    from ld_tools_tpu_torch.ingest import pack
+    from ld_tools_tpu_torch.io import heatmap
+
+    c1 = pack.popcounts(gp)
+
+    def recount(i, j):
+        return _recount(gp, i, j, c1)[0]
+
+    src = os.path.join(work, "tri_src")
+    _triangle_sources(src, ("t500", "t2000"), TRI_ROWS)
+    out = os.path.join(work, "tri_out")
+    extra = ("-o", "both", "-j", "-p", "3")
+    n, wall, stats, launches = _run_triangle("chr21", src, data, out, extra)
+    check(n == 2, f"ld_triangle built {n} matrices of 2")
+    summary = {"both": dict(wall_s=wall, engine_launches=launches, **stats)}
+    base = {k: os.path.join(out, f"{k}_LD_matr", f"{k}_chr21_r")
+            for k in ("t500", "t2000")}
+    cells = _check_triangle_tsv(base["t500"] + ".tsv", recount)
+    cells += _check_triangle_tsv(base["t2000"] + ".tsv", recount,
+                                 TRI_SAMPLED, seed=3)
+    with open(base["t500"] + ".json") as fh:
+        hover = json.load(fh)["data"][0]["hovertext"]
+    check(len(hover) == 500 and "r2: " in hover[499][0],
+          "the 500-row heatmap has no per-cell hover text")
+    col = _figure(base["t2000"] + ".html")["columnar"]
+    check(col["n"] == 2000 and col["qw"] == 2 and "freqq" in col,
+          "the 2,000-row heatmap is not columnar with int16 codes")
+    check(2000 > heatmap._HOVER_CELLS_MAX >= 500, "the hover cap moved")
+
+    src_t = os.path.join(work, "tri_src_table")
+    _triangle_sources(src_t, ("t10k",), TRI_ROWS)
+    out_t = os.path.join(work, "tri_out_table")
+    n, wall, stats, launches = _run_triangle("chr21", src_t, data, out_t,
+                                             ("-o", "table"))
+    check(n == 1 and launches == 5, f"the 10,000-row table: {n} matrices, "
+          f"{launches} engine launches (5 row blocks of 2,048 expected)")
+    summary["table"] = dict(wall_s=wall, engine_launches=launches, **stats)
+    cells += _check_triangle_tsv(
+        os.path.join(out_t, "t10k_LD_matr", "t10k_chr21_r.tsv"), recount,
+        TRI_SAMPLED, seed=4)
+    log(f"ld_triangle check: every row of the 500-row table and "
+        f"{TRI_SAMPLED} rows of the 2,000- and 10,000-row tables ({cells} "
+        "cells) equal the f64 recount")
+    shutil.rmtree(out_t, ignore_errors=True)
+    return summary, ("chr21 500 + 2,000", src, data, extra, out)
+
+
+def _mixed_cols(data, pgroup):
+    """Each ploidy profile's cohort columns in a chrX store (both
+    genders, every population)."""
+    from ld_tools_tpu_torch.tools.common import DataConfig
+
+    cfg = DataConfig.resolve(data, True, "both", "all")
+    cp = cfg.store().chrom("X").cohort_ploidy(cfg.sample_names)
+    return [cp.cols_for(g) for g in range(int(pgroup.max()) + 1)]
+
+
+def phase_triangle_x(work, data, gp, pgroup):
+    """ld_triangle on the chrX store: 300 and 1,000 rsIDs straddling the
+    first PAR bound, -o both: the grouped engine (mixed_pair_ld) on the
+    per-cell path and the columnar heatmap with int32 codes and
+    pair-dependent frequencies; 50 sampled rows of each table against a
+    recount.  Returns the summary and the parity phase's run."""
+    lo, _ = chrx_bounds(gp.shape[0])
+    rows_of = {"x300": range(lo - 150, lo + 150),
+               "x1000": range(lo - 500, lo + 500)}
+    src = os.path.join(work, "tri_x_src")
+    _triangle_sources(src, rows_of, rows_of)
+    out = os.path.join(work, "tri_x_out")
+    extra = ("-o", "both", "-p", "2")
+    n, wall, stats, launches = _run_triangle("chrX", src, data, out, extra)
+    check(n == 2, f"ld_triangle (chrX) built {n} matrices of 2")
+    cols = _mixed_cols(data, pgroup)
+
+    def recount(i, j):
+        return _recount_mixed(gp, pgroup, cols, i, j)[0].astype(str)
+
+    base = {k: os.path.join(out, f"{k}_LD_matr", f"{k}_chrX_r")
+            for k in rows_of}
+    cells = sum(_check_triangle_tsv(base[k] + ".tsv", recount, 50, seed=5)
+                for k in rows_of)
+    col = _figure(base["x1000"] + ".html")["columnar"]
+    check(col["n"] == 1000 and col["qw"] == 4 and "f1q" in col,
+          "the 1,000-row chrX heatmap is not columnar with int32 codes and "
+          "pair frequencies")
+    log(f"ld_triangle check (chrX): 50 sampled rows of each table ({cells} "
+        "cells, inside and across the PAR bound) equal the recount")
+    return (dict(wall_s=wall, engine_launches=launches, **stats),
+            ("chrX 300 + 1,000", src, data, extra, out))
+
+
 def _recount_mixed(gp, pgroup, cols, i, j):
     """Exact r^2 / D' strings and rounded r^2 of the pairs (i, j) of a
     mixed-ploidy store, from counts by the plain version on the card:
@@ -1856,11 +2177,7 @@ def _check_mixed_hits(tag, path, data, gp, pos, pgroup, seed):
     inside the segments and across them (values), and sampled
     pairs across each boundary inside the window (a hit exactly when the
     rounded r^2 >= 0.8).  Returns (hits, hits across segments)."""
-    from ld_tools_tpu_torch.tools.common import DataConfig
-
-    cfg = DataConfig.resolve(data, True, "both", "all")
-    cp = cfg.store().chrom("X").cohort_ploidy(cfg.sample_names)
-    cols = [cp.cols_for(g) for g in range(int(pgroup.max()) + 1)]
+    cols = _mixed_cols(data, pgroup)
     v = gp.shape[0]
     lo, hi = chrx_bounds(v)
     i, j, r2s, dps = read_tsv(path, pos)
@@ -1904,7 +2221,9 @@ def phase_mixed_scan(work):
     segments) with -w 1000000, r^2 >= 0.8, in both resident layouts: the
     segments' scans must launch K5/K3 (int8) or K6/K4 (packed) only, the
     engine must count the cross-segment rectangles on the card, the two
-    TSVs must be identical and hold the recount's hits."""
+    TSVs must be identical and hold the recount's hits.  Returns the
+    summary and the store (its directory, packed rows and ploidy
+    profiles of the rows), which the chrX triangle takes on."""
     from ld_tools_tpu_torch.ops import engine
 
     t0 = time.perf_counter()
@@ -1953,13 +2272,13 @@ def phase_mixed_scan(work):
         "chrX", os.path.join(work, "out_x_int8", "ld_scan_chrX_r_0.8.tsv"),
         data, gp, pos, pgroup, seed=9)
     runs["across_hits"] = n_across
-    shutil.rmtree(data, ignore_errors=True)
-    return runs
+    return runs, (data, gp, pgroup)
 
 
-def phase_parity(work):
+def phase_parity(work, triangle_runs):
     """-E cuda (both layouts) and -E torch on a small store: identical
-    bytes."""
+    bytes; then ld_triangle's -E cuda runs (``triangle_runs``) again
+    with -E torch: identical files."""
     from ld_tools_tpu_torch import ld_scan
 
     gp, pos = scan_dataset(N_PARITY, seed=5)
@@ -1995,6 +2314,31 @@ def phase_parity(work):
     lo, _ = chrx_bounds(N_PARITY)
     _parity_lite([(data, rsid_of(10), rsid_of(17)),
                   (datax, rsid_of(lo - 3), rsid_of(lo + 5))])
+    for run in triangle_runs:
+        _parity_triangle(*run)
+
+
+def _parity_triangle(label, src, data, extra, cuda_out):
+    """An ld_triangle -E cuda run's files against the same run with -E
+    torch (the engine's plain counts on the CPU): byte for byte."""
+    from ld_tools_tpu_torch import ld_triangle
+    from ld_tools_tpu_torch.ops import engine
+
+    out = cuda_out + "_torch"
+    engine.reset_launches()
+    t0 = time.perf_counter()
+    ld_triangle.main(["-S", src, "-D", data, "-t", out, "-E", "torch",
+                      *extra])
+    secs = time.perf_counter() - t0
+    check(engine.count_on_device.launches == 0,
+          f"parity: ld_triangle -E torch ({label}) counted on the card")
+    want, got = _tree(cuda_out), _tree(out)
+    check(got == want and want, f"parity: ld_triangle ({label}): -E cuda "
+          "and -E torch files differ")
+    log(f"parity: ld_triangle ({label}, {' '.join(extra)}): {len(want)} "
+        f"files ({sum(map(len, want.values())) / 1e6:.1f} MB), -E cuda "
+        f"byte-identical to -E torch ({secs:.2f}s)")
+    shutil.rmtree(out, ignore_errors=True)
 
 
 def _parity_area(work, data, v):
@@ -2107,12 +2451,23 @@ def _only_launched(cmd, launches, sites):
             check(n == 0, f"{cmd} launched {site} {n} times")
 
 
+SUITE_CONFIGS = "5,1,3,2,6,6c"
+SUITE_ROWS = [
+    "5_batch_8chrom", "1_ld_lite_pair", "1b_ld_lite_pair_warm",
+    "3_ld_area_50q_250kb", "3_ld_area_50q_250kb_warm",
+    "2_ld_triangle_500_eur", "2b_ld_triangle_500_eur_warm",
+    "6_triangle_10k_table", "6_triangle_10k_table_warm",
+    "6b_hover_percell_2000_microbench",
+    "6b_hover_percell_2000_microbench_warm",
+    "6c_heatmap_columnar_10k", "6c_heatmap_columnar_10k_warm"]
+
+
 def phase_bench(work, results):
     """The port's measurement entry points, as subprocesses: the headline
     sweep (its one JSON line, bench.py's keys), the K8 stage split (its
     launch counts are K8's on its path), the fast triangle variants and
-    suite configs 5, 1 and 3 (their artifact).  Returns the headline
-    record."""
+    suite configs 5, 1, 3, 2, 6 and 6c (their artifact; the engine's
+    launches in each tool row).  Returns the headline record."""
     out, err, rep = _run_module("ld_tools_tpu_torch.bench")
     lines = out.strip().splitlines()
     check(len(lines) == 1, f"the headline printed {len(lines)} lines")
@@ -2152,21 +2507,28 @@ def phase_bench(work, results):
 
     art = os.path.join(work, "suite.json")
     _, _, rep = _run_module("ld_tools_tpu_torch.bench.suite", "--configs",
-                            "5,1,3", "--out", art)
+                            SUITE_CONFIGS, "--out", art, timeout=900)
     # config 5's default kernel="dense": one unpack on the card, then K1;
-    # configs 1 (ld_lite) and 3 (ld_area) count through the engine
-    _only_launched("bench.suite --configs 5,1,3", rep["launches"],
+    # configs 1 (ld_lite), 3 (ld_area), 2, 6 and 6c (ld_triangle) count
+    # through the engine
+    _only_launched(f"bench.suite --configs {SUITE_CONFIGS}", rep["launches"],
                    {"ld_triangle_blocks"})
     with open(art) as fh:
         rows = json.load(fh)["results"]
-    check([r["config"] for r in rows] == [
-        "5_batch_8chrom", "1_ld_lite_pair", "1b_ld_lite_pair_warm",
-        "3_ld_area_50q_250kb", "3_ld_area_50q_250kb_warm"]
+    check([r["config"] for r in rows] == SUITE_ROWS
           and all(r["seconds"] > 0 for r in rows),
           f"suite artifact rows {rows}")
-    check(rep["engine"] > 0 and rows[3]["engine_launches"] > 0
-          and rows[3]["files"] > 0, f"suite config 3 on the card: {rows[3]}"
-          f", engine launches {rep['engine']}")
+    by = {r["config"]: r for r in rows}
+    check(rep["engine"] > 0 and by["3_ld_area_50q_250kb"]["engine_launches"]
+          > 0 and by["3_ld_area_50q_250kb"]["files"] > 0,
+          f"suite config 3 on the card: {by['3_ld_area_50q_250kb']}, engine "
+          f"launches {rep['engine']}")
+    for row in rows:
+        if not row["config"].startswith(("5_", "1")):
+            check(row["engine_launches"] > 0, f"suite {row['config']} never "
+                  "counted on the card")
+    check(by["2_ld_triangle_500_eur"]["matrices"] == 1,
+          f"suite config 2: {by['2_ld_triangle_500_eur']}")
     for row in rows:
         log(f"  suite: {json.dumps(row)}")
     return head
@@ -2207,10 +2569,16 @@ def main():
     try:
         scan, stores = phase_scan(work, gp, pos, results)
         area = phase_area(work, stores["chr21"], gp, pos)
+        triangle, tri_run = phase_triangle(work, stores["chr21"], gp)
         sharded = phase_sharded(work, stores, gp, pos, results)
+        entry = phase_entry()
+        mixed, (datax, gpx, pgx) = phase_mixed_scan(work)
+        triangle["chrX"], tri_run_x = phase_triangle_x(work, datax, gpx, pgx)
+        del gpx, pgx
+        phase_parity(work, [tri_run, tri_run_x])
+        shutil.rmtree(stores["chr21"], ignore_errors=True)
+        shutil.rmtree(datax, ignore_errors=True)
         del stores
-        mixed = phase_mixed_scan(work)
-        phase_parity(work)
         torch.cuda.empty_cache()  # the bench processes share the card
         headline = phase_bench(work, results)
     finally:
@@ -2233,8 +2601,9 @@ def main():
         ))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
     print(json.dumps({"build_s": build["seconds"], "scan": scan,
-                      "area": area, "mixed_scan": mixed,
-                      "sharded": sharded, "headline": headline},
+                      "area": area, "triangle": triangle,
+                      "mixed_scan": mixed, "sharded": sharded,
+                      "entry": entry, "headline": headline},
                      default=float))
     # the build's per-instance resources again, past the long phases
     print(json.dumps({"ptxas": build["ptxas"], "sass": build["sass"]}))
@@ -2248,6 +2617,9 @@ def main():
 
 if __name__ == "__main__":
     try:
+        if sys.argv[1:] == ["--sweep-worker"]:  # a rank of phase_sharded's
+            sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+            sys.exit(sweep_worker())
         sys.exit(main())
     except SmokeFailure as exc:
         print(f"chip_smoke: FAIL: {exc}", file=sys.stderr)

@@ -8,9 +8,14 @@ here as copies with their imports pointed into the port.
 - ``ops``     ``ld_kernels`` (the hand-written CUDA kernels of csrc/ and
               their plain PyTorch versions), ``ld_stream`` (the
               chromosome-scale threshold scan) and the exact f64 finisher.
-- ``tools``   ``scan``: the ld_scan tool.
-- ``io``, ``cli``, ``utils``  writers, argparse front-end, device choice,
-              logging and the profiler hook.
+- ``tools``   the four tools, ``lite``, ``area``, ``triangle`` and
+              ``scan``, with their entry points (``python -m
+              ld_tools_tpu_torch.ld_<tool>``) and the multiplexer
+              (``python -m ld_tools_tpu_torch <command>``).
+- ``parallel`` the all-pairs sweeps over devices and processes;
+              ``entry`` the compile-check and dry-run entry points.
+- ``io``, ``cli``, ``utils``  writers (the heatmap's too), argparse
+              front-end, device choice, logging and the profiler hook.
 
 Entry points run on ``cuda`` unless the caller asks for the CPU, and
 raise when ``cuda`` is asked for and no card is present.

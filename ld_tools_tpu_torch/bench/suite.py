@@ -15,6 +15,9 @@ Ported configs:
     cold and warm, without the table's render (one pair is below the
     engine's host cutoff: its counts run on the host whatever the
     device).
+2.  ld_triangle: the 500 variants of a synthetic 2,504-sample store, the
+    EUR samples, heatmap and table (``-o both``: the per-cell hover path),
+    4 source-file threads, cold and warm, with the runner's phases.
 3.  ld_area: r^2 >= 0.8 around 50 query rsIDs (every 100th of 5,000
     variants) with 250 kb flanks on one chromosome, 4 source-file
     threads, cold and warm; the count jobs go through the engine on the
@@ -26,11 +29,19 @@ Ported configs:
 5.  multi-chromosome batch: 8 chromosomes of 8,192 variants through
     ``ld_triangle_matrix_packed`` (fast r^2), round-robin over the
     processes of a ``torch.distributed`` group (one process: all 8).
+6.  BASELINE metric #2: a 10,000-variant x 5,008-haplotype ld_triangle
+    table (``TriangleRunner._write_table_streamed``: the engine's counts
+    over ``ResidentCounts``, the f64 finish, the streamed TSV), cold and
+    warm, with its phases; then (6b) the per-cell hover strings of its
+    first 2,000 variants, a microbenchmark of the formatting the tool
+    routes past 500 variants to the columnar path.
+6c. the 10,000-variant columnar heatmap
+    (``TriangleRunner._build_heatmap_columnar``, the pooled overview HTML
+    and the full-resolution JSON), cold and warm, with its phases.
 
-Not ported, and refused rather than skipped: 2, 6 and 6c run the
-ld_triangle tool and its heatmap (ROADMAP queue 1, item 5); 0gb and wg,
-the GB-scale ingest and the whole-genome prep and scan, are measurement
-work still to port (ROADMAP queue 1, item 8).
+Not ported, and refused rather than skipped: 0gb and wg, the GB-scale
+ingest and the whole-genome prep and scan, are measurement work still to
+port (ROADMAP queue 1, item 8).
 
 Sizes are the module constants below, so a test can shrink them.
 """
@@ -54,6 +65,8 @@ CONFIG0_SAMPLES = 2504
 CONFIG0_VARIANTS = 6000
 CONFIG1_SAMPLES = 2504
 CONFIG1_VARIANTS = 100
+CONFIG2_SAMPLES = 2504
+CONFIG2_VARIANTS = 500
 CONFIG3_SAMPLES = 2504
 CONFIG3_VARIANTS = 5000
 CONFIG3_QUERIES = 50
@@ -62,6 +75,9 @@ CONFIG4_VARIANTS = 102_400
 CONFIG4C_VARIANTS = 204_800
 CONFIG5_CHROMS = 8
 CONFIG5_VARIANTS = 8192
+CONFIG6_VARIANTS = 10_000
+CONFIG6B_VARIANTS = 2000
+CONFIG6C_VARIANTS = 10_000
 SCAN_RUN = 64  # rows per run of identical base rows in the scan data
 
 
@@ -160,6 +176,49 @@ def config1(rec, dev):
             rec.record(label, dt, device=dev.type)
     finally:
         shutil.rmtree(d, ignore_errors=True)
+
+
+def _rounded(phases: dict) -> dict:
+    return {k: round(v, 3) if isinstance(v, float) else v
+            for k, v in phases.items()}
+
+
+def config2(rec, dev):
+    """ld_triangle: 500 variants, EUR, -o both (scripts/bench_suite.py
+    config2); each run's files are written anew."""
+    import shutil
+    import types
+
+    from ld_tools_tpu_torch.ops import engine
+    from ld_tools_tpu_torch.tools import triangle
+
+    d, rs = _env(CONFIG2_SAMPLES, {"2": CONFIG2_VARIANTS}, seed=2)
+    src = tempfile.mkdtemp(prefix="tpu_ld_bench_src_")
+    with open(os.path.join(src, "q.txt"), "w") as fh:
+        fh.write("\n".join(rs["2"]) + "\n")
+    args = types.SimpleNamespace(
+        src_dir_path=src, intgen_dir_path=d, trg_top_dir_path=src,
+        meta_lines_quan=0, skip_intgen_data_ver=True, gend_names="both",
+        pop_names="EUR", ld_measure="r_square", ld_low_thres=None,
+        matrix_type="both", heatmap_json=False, disp_letters=False,
+        color_pal="greens", font_size=None, square_shape=False,
+        dont_disp_footer=False, max_proc_quan=4, engine=_engine(dev),
+    )
+    try:
+        for label in ("2_ld_triangle_500_eur", "2b_ld_triangle_500_eur_warm"):
+            before = engine.count_on_device.launches
+            stats = {}
+            t0 = time.perf_counter()
+            matrices = triangle.run(args, stats)
+            dt = time.perf_counter() - t0
+            jobs = engine.count_on_device.launches - before
+            print(f"config{label}: {dt:.3f}s, {matrices} matrices, {jobs} "
+                  f"engine launches, phases={_rounded(stats)}")
+            rec.record(label, dt, matrices=matrices, engine_launches=jobs,
+                       device=dev.type, phases=_rounded(stats))
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+        shutil.rmtree(src, ignore_errors=True)
 
 
 def config3(rec, dev):
@@ -320,6 +379,152 @@ def config5(rec, dev):
                chroms_on_host=len(mine), device=dev.type)
 
 
+def _triangle_self(dev, mtype, heatmap_json):
+    """The bare ``self`` the suite hands TriangleRunner's streamed
+    functions (scripts/bench_suite.py config6 / config6c): a config on
+    ``dev`` and the data's population and gender labels."""
+    import types
+
+    from ld_tools_tpu_torch.tools.triangle import TriangleConfig
+
+    cfg = TriangleConfig(
+        src_dir_path=".", trg_top_dir_path=".", meta_lines_quan=0,
+        ld_measure="r_square", ld_low_thres=None, matrix_type=mtype,
+        heatmap_json=heatmap_json, disp_letters=False, color_pal="greens",
+        font_size=None, square_shape=False, dont_disp_footer=False,
+        device=str(dev),
+    )
+    return types.SimpleNamespace(
+        config=cfg,
+        data=types.SimpleNamespace(pop_names=("ALL",),
+                                   gend_names=("male", "female")),
+    )
+
+
+class _Annotations:
+    """The chromosome stand-in of configs 6b and 6c: every annotation
+    column one array, built once so that it costs no timed phase."""
+
+    def __init__(self, n):
+        self._ann = np.asarray(["A"] * n)
+
+    def annotation(self, name):
+        return self._ann
+
+
+def _triangle_data(seed, V):
+    """(G, rsIDs, positions) of configs 6 and 6c: V rows of 5,008
+    haplotypes, each with its own allele frequency in [0.05, 0.95]."""
+    rng = np.random.default_rng(seed)
+    G = (rng.random((V, common.N_HAP))
+         < rng.uniform(0.05, 0.95, (V, 1))).astype(np.int8)
+    return G, [f"rs{i}" for i in range(V)], list(range(10_000, 10_000 + V))
+
+
+def config6(rec, dev):
+    """BASELINE metric #2 (scripts/bench_suite.py config6): the 10k table,
+    then the 2,000-variant per-cell hover microbenchmark."""
+    import shutil
+
+    from ld_tools_tpu_torch.ops import engine
+    from ld_tools_tpu_torch.ops.engine import exact_all_pairs
+    from ld_tools_tpu_torch.tools.triangle import TriangleRunner
+
+    V = CONFIG6_VARIANTS
+    G, rs, poss = _triangle_data(6, V)
+    self = _triangle_self(dev, "table", False)
+    out_dir = tempfile.mkdtemp(prefix="tpu_ld_tri10k_")
+    try:
+        # first-call costs (the card's context, the product's setup)
+        # outside the timed region: one small block
+        w = min(256, V)
+        TriangleRunner._write_table_streamed(
+            self, G[:w], "0", rs[:w], poss[:w], "warm", out_dir)
+        for label in ("6_triangle_10k_table", "6_triangle_10k_table_warm"):
+            phases = {}
+            before = engine.count_on_device.launches
+            t0 = time.perf_counter()
+            TriangleRunner._write_table_streamed(
+                self, G, "21", rs, poss, "bench10k", out_dir,
+                phase_stats=phases)
+            dt = time.perf_counter() - t0
+            jobs = engine.count_on_device.launches - before
+            size_mb = os.path.getsize(
+                os.path.join(out_dir, "bench10k_chr21_r.tsv")) / 1e6
+            print(f"config{label}: {dt:.1f}s ({V * V / dt / 1e6:.0f} "
+                  f"Mcells/s, {size_mb:.0f} MB TSV), {jobs} engine "
+                  f"launches, phases={_rounded(phases)}")
+            rec.record(label, dt, mcells_per_s=round(V * V / dt / 1e6, 1),
+                       tsv_mb=round(size_mb, 1), engine_launches=jobs,
+                       device=dev.type, phases=_rounded(phases))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+    # the per-cell hover strings at 2,000 variants: the tool routes past
+    # 500 variants to the columnar payload (config 6c), so this row times
+    # the per-cell formatting itself, not a configuration a user reaches
+    V2 = min(CONFIG6B_VARIANTS, V)
+    cd = _Annotations(V2)
+    for label in ("6b_hover_percell_2000_microbench",
+                  "6b_hover_percell_2000_microbench_warm"):
+        before = engine.count_on_device.launches
+        t0 = time.perf_counter()
+        exact = exact_all_pairs(G[:V2], device=str(dev))
+        t_count = time.perf_counter() - t0
+        info = TriangleRunner._hovertext_matrix(
+            self, exact, cd, list(range(V2)), rs[:V2], poss[:V2])
+        dt = time.perf_counter() - t0
+        jobs = engine.count_on_device.launches - before
+        phases = {"exact_s": round(t_count, 3),
+                  "hover_format_s": round(dt - t_count, 3)}
+        print(f"config{label}: {dt:.1f}s ({V2 * V2 / 2 / dt / 1e6:.1f} "
+              f"Mcells/s), {jobs} engine launches, phases={phases}")
+        rec.record(label, dt, mcells_per_s=round(V2 * V2 / 2 / dt / 1e6, 1),
+                   engine_launches=jobs, device=dev.type, phases=phases)
+        del info
+
+
+def config6c(rec, dev):
+    """The 10k columnar heatmap (scripts/bench_suite.py config6c): int16
+    value triangles and O(n) strings from streamed row blocks."""
+    import shutil
+
+    from ld_tools_tpu_torch.ops import engine
+    from ld_tools_tpu_torch.tools.triangle import TriangleRunner
+
+    V = CONFIG6C_VARIANTS
+    G, rs, poss = _triangle_data(66, V)
+    self = _triangle_self(dev, "heatmap", True)
+    cd = _Annotations(V)
+    out_dir = tempfile.mkdtemp(prefix="tpu_ld_hm10k_")
+    try:
+        w = min(600, V)
+        TriangleRunner._build_heatmap_columnar(
+            self, cd, "0", list(range(w)), rs[:w], poss[:w], G[:w], None,
+            "warm", out_dir)
+        for label in ("6c_heatmap_columnar_10k",
+                      "6c_heatmap_columnar_10k_warm"):
+            phases = {}
+            before = engine.count_on_device.launches
+            t0 = time.perf_counter()
+            TriangleRunner._build_heatmap_columnar(
+                self, cd, "21", list(range(V)), rs, poss, G, None, "hm10k",
+                out_dir, phase_stats=phases)
+            dt = time.perf_counter() - t0
+            jobs = engine.count_on_device.launches - before
+            html_mb = os.path.getsize(
+                os.path.join(out_dir, "hm10k_chr21_r.html")) / 1e6
+            print(f"config{label}: {dt:.1f}s, {html_mb:.0f} MB HTML "
+                  f"({V * V / 2 / dt / 1e6:.0f} Mcells/s), {jobs} engine "
+                  f"launches, phases={_rounded(phases)}")
+            rec.record(label, dt, html_mb=round(html_mb, 1),
+                       mcells_per_s=round(V * V / 2 / dt / 1e6, 1),
+                       engine_launches=jobs, device=dev.type,
+                       phases=_rounded(phases))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
 def _not_ported(key, what, item):
     def config(rec, dev):
         raise NotImplementedError(
@@ -331,13 +536,13 @@ def _not_ported(key, what, item):
 CONFIGS = {
     "0": config0,
     "1": config1,
-    "2": _not_ported("2", "the ld_triangle tool", 5),
+    "2": config2,
     "3": config3,
     "4": config4,
     "4c": config4c,
     "5": config5,
-    "6": _not_ported("6", "the ld_triangle tool", 5),
-    "6c": _not_ported("6c", "the ld_triangle heatmap", 5),
+    "6": config6,
+    "6c": config6c,
     "0gb": _not_ported("0gb", "GB-scale ingest", 8),
     "wg": _not_ported("wg", "whole-genome prep and scan", 8),
 }
@@ -358,8 +563,8 @@ def main(argv=None) -> list:
         prog="python -m ld_tools_tpu_torch.bench.suite",
         description="The benchmark suite's ported configs.")
     ap.add_argument("--configs", default="0,4,5",
-                    help=f"comma list of configs ({', '.join(CONFIGS)}); "
-                         "the default runs the ported ones but 4c")
+                    help=f"comma list of configs ({', '.join(CONFIGS)}; "
+                         "default 0,4,5)")
     ap.add_argument("--out", default=None, help="write the JSON artifact here")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)

@@ -1,5 +1,6 @@
 """Shared CLI construction: one flag surface, two languages (a copy of
-ld_tools_tpu/cli/_shared.py for the ported tools, lite and area).
+ld_tools_tpu/cli/_shared.py for the ported tools: lite, area and
+triangle).
 
 The reference ships six argparse modules ({ld_area,ld_lite,ld_triangle} x
 {ru,en}) whose argument sets are pairwise identical — only help text
@@ -9,9 +10,8 @@ impossible by construction.  Flag names, defaults, and choices match the
 reference (SURVEY.md §2a).
 
 The one flag beyond the JAX surface is ``-E/--engine {cuda,torch}`` on
-the ported tools (lite, area; ld_scan's own parser has it too): cuda
-(the default) counts on the card, torch runs the plain PyTorch versions
-on the CPU.  There is no automatic choice, so a run never falls back to
+every tool (ld_scan's own parser has it too): cuda (the default) counts
+on the card, torch runs the plain PyTorch versions on the CPU.  There is no automatic choice, so a run never falls back to
 the CPU without being asked to.
 """
 
@@ -106,6 +106,56 @@ def build_area_parser(ver: str, text: dict) -> ArgumentParser:
         "-o", "--trg-file-type", metavar="[tsv]",
         choices=["tsv", "json", "rsids"], default="tsv",
         dest="trg_file_type", type=str, help=text["file_type"],
+    )
+    _max_proc_arg(parser, text)
+    _engine_arg(parser, text)
+    return parser
+
+
+def build_triangle_parser(ver: str, text: dict) -> ArgumentParser:
+    parser = ArgumentParser(
+        description=text["description"].format(ver=ver),
+        formatter_class=RawTextHelpFormatter,
+    )
+    _common_batch_args(parser, text)
+    _common_data_args(parser, text)
+    parser.add_argument(
+        "-l", "--ld-measure", metavar="[r_square]",
+        choices=["r_square", "d_prime"], default="r_square",
+        dest="ld_measure", type=str, help=text["measure"],
+    )
+    parser.add_argument(
+        "-z", "--ld-low-thres", metavar="[None]", dest="ld_low_thres",
+        type=float, help=text["thres"],
+    )
+    parser.add_argument(
+        "-o", "--matrix-type", metavar="[heatmap]",
+        choices=["heatmap", "table", "both"], default="heatmap",
+        dest="matrix_type", type=str, help=text["matrix_type"],
+    )
+    parser.add_argument(
+        "-j", "--heatmap-json", dest="heatmap_json", action="store_true",
+        help=text["heatmap_json"],
+    )
+    parser.add_argument(
+        "-i", "--disp-letters", dest="disp_letters", action="store_true",
+        help=text["disp_letters"],
+    )
+    parser.add_argument(
+        "-c", "--color-pal", metavar="[greens]", default="greens",
+        dest="color_pal", type=str, help=text["color_pal"],
+    )
+    parser.add_argument(
+        "-k", "--font-size", metavar="[None]", dest="font_size", type=int,
+        help=text["font_size"],
+    )
+    parser.add_argument(
+        "-q", "--square-shape", dest="square_shape", action="store_true",
+        help=text["square"],
+    )
+    parser.add_argument(
+        "-s", "--dont-disp-footer", dest="dont_disp_footer",
+        action="store_true", help=text["no_footer"],
     )
     _max_proc_arg(parser, text)
     _engine_arg(parser, text)

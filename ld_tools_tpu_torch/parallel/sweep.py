@@ -1,32 +1,41 @@
-"""All-pairs LD sweeps sharded over a list of local devices: the
+"""All-pairs LD sweeps sharded over devices and processes: the
 counterpart of ld_tools_tpu/parallel/sweep.py.
 
 The variant axis of one chromosome splits into row bands, one shard per
-entry of a device list (``make_mesh``, or any sequence of devices; a
+entry of a mesh (``make_mesh``, or any sequence of local devices; a
 device may repeat, so ``[cuda:0] * 4`` is four shards on one card and
 ``[cpu] * 4`` four on the CPU):
 
 - ``all_pairs_replicated``: every distinct device holds all of G; shard
-  k computes band k against every column;
+  k computes band k against every column, with no traffic;
 - ``all_pairs_ring``: shard k starts with band k; at step s it multiplies
   its band by the block that started on shard (k - s) mod D, then passes
-  the block on to shard k + 1 (JAX's ``lax.ppermute``: a ``.to`` of the
-  next shard's device, a no-op where the device repeats);
+  the block on to shard k + 1 (JAX's ``lax.ppermute``: :func:`_shift`);
 - ``all_pairs_trapezoid``: 2D bands, shard k owning bands k and
   2D-1-k, so that every shard's share of the lower triangle is the same;
   two block buffers rotate and each shard computes only the blocks its
   triangle needs.
 
+Across processes: after ``utils.distributed.initialize_if_needed()``,
+``make_mesh()`` is a :class:`ProcessMesh` of every process's local shards
+in rank order (JAX's global mesh after ``jax.distributed``).  A block
+moves to the next shard with ``.to`` where both shards are in one
+process, and as a host copy over the group's gloo ``send``/``recv`` where
+they are not.
+
 Each band-by-block product is ``ops/ld_math``'s int8 count and f32
 epilogue, the same as the one-device sweep's, so every shard layout gives
-the one-device values bit for bit.  The sweeps return the full (V, V) r^2
-and D' on the first device, rows in natural order (the trapezoid's strict
-upper triangle zero).  A sweep across processes (JAX's cross-process
-ring) is not here.
+the one-device values bit for bit.  In one process the sweeps return the
+full (V, V) r^2 and D' on the first device, rows in natural order (the
+trapezoid's strict upper triangle zero); across processes each process
+returns the row bands its own shards hold (:class:`RowBand`, the
+counterpart of a JAX array's ``addressable_shards``).
 """
 
 from __future__ import annotations
 
+import collections
+import dataclasses
 
 import numpy as np
 import torch
@@ -34,23 +43,71 @@ import torch
 from ld_tools_tpu_torch.ops.ld_kernels import shard_devices
 from ld_tools_tpu_torch.ops.ld_math import (haplotype_counts_int8,
                                             ld_from_counts_static_n)
-from ld_tools_tpu_torch.utils.device import device_guard, resolve_device
+from ld_tools_tpu_torch.ops.ld_stream import scan_mesh
+from ld_tools_tpu_torch.utils.device import device_guard
+from ld_tools_tpu_torch.utils.distributed import process_count, process_index
+
+# rows [rows.start, rows.stop) of a sweep's (V, V) output, held by one of
+# this process's shards (a ``data`` of (rows, V) on the shard's device)
+RowBand = collections.namedtuple("RowBand", "rows data")
 
 
-def make_mesh(n_devices=None, device="cuda") -> list:
-    """The first ``n_devices`` local cards (all by default; asking for
-    more than there are raises, as in JAX: results labelled N-device must
-    have run on N), or on the CPU ``n_devices`` (default 1) shards."""
-    dev = resolve_device(device)
-    if dev.type == "cpu":
-        return [dev] * (1 if n_devices is None else int(n_devices))
-    devices = [torch.device("cuda", k) for k in range(torch.cuda.device_count())]
-    if n_devices is not None:
-        if len(devices) < n_devices:
-            raise ValueError(f"requested {n_devices} devices, only "
-                             f"{len(devices)} available")
-        devices = devices[:n_devices]
-    return devices
+@dataclasses.dataclass(frozen=True)
+class ProcessMesh:
+    """The shards of every process of a torch.distributed group, in rank
+    order: shard k lies on ``devices[k]`` of process ``owners[k]``;
+    ``rank`` is this process's."""
+
+    owners: tuple
+    devices: tuple
+    rank: int
+
+    def __len__(self) -> int:
+        return len(self.owners)
+
+
+def make_mesh(n_devices=None, device="cuda"):
+    """This process's shards, ``ld_stream.scan_mesh``'s rule: every
+    visible card (under a launcher this process's card), the first
+    ``n_devices`` of them repeated past their count, or on the CPU
+    ``n_devices`` (default 1) shards.  Under an initialised
+    torch.distributed group of more than one process, a
+    :class:`ProcessMesh` of every process's shards in rank order."""
+    local = [str(d) for d in scan_mesh(n_devices, device)]
+    if process_count() <= 1:
+        return [torch.device(d) for d in local]
+    import torch.distributed as dist
+
+    gathered = [None] * process_count()
+    dist.all_gather_object(gathered, local)
+    return ProcessMesh(
+        owners=tuple(r for r, shards in enumerate(gathered) for _ in shards),
+        devices=tuple(d for shards in gathered for d in shards),
+        rank=process_index())
+
+
+@dataclasses.dataclass(frozen=True)
+class _Plan:
+    """The shards of a sweep: ``n`` in all, ``devices`` {shard index:
+    device} of this process's, ``owners`` the rank of each; ``spans``
+    whether they span processes."""
+
+    n: int
+    devices: dict
+    owners: tuple
+    rank: int
+    spans: bool
+
+
+def _plan(mesh) -> _Plan:
+    if mesh is None:
+        mesh = make_mesh()
+    if not isinstance(mesh, ProcessMesh):  # a list of this process's shards
+        mesh = ProcessMesh((0,) * len(mesh), tuple(mesh), 0)
+    mine = [k for k, r in enumerate(mesh.owners) if r == mesh.rank]
+    devs = shard_devices([mesh.devices[k] for k in mine])
+    return _Plan(len(mesh), dict(zip(mine, devs)), mesh.owners, mesh.rank,
+                 spans=len(set(mesh.owners)) > 1)
 
 
 def _round_up(x: int, m: int) -> int:
@@ -66,76 +123,124 @@ def _band_ld(g_rows, g_cols, c1_rows, c1_cols, n_hap):
 
 
 def _prep(G, mesh, band_mult: int):
-    """Shared prologue: the shard devices, V padded to a multiple of
+    """Shared prologue: the shard plan, V padded to a multiple of
     ``band_mult * D * 8`` (JAX's ``_prep``), row sums, and the padded rows
-    and sums on every distinct device.  Returns (devices, v, h, v_pad,
-    {device: G}, {device: c1})."""
-    devices = shard_devices(make_mesh() if mesh is None else mesh)
-    d = len(devices)
+    and sums on every distinct device of this process.  Returns (plan, v,
+    h, v_pad, {device: G}, {device: c1})."""
+    plan = _plan(mesh)
     G = np.asarray(G, dtype=np.int8)
     v, h = G.shape
-    v_pad = _round_up(v, band_mult * d * 8)
+    v_pad = _round_up(v, band_mult * plan.n * 8)
     Gp = np.zeros((v_pad, h), dtype=np.int8)
     Gp[:v] = G
     c1 = Gp.astype(np.int64).sum(axis=1).astype(np.float32)
     g_on, c1_on = {}, {}
-    for dev in dict.fromkeys(devices):
+    for dev in dict.fromkeys(plan.devices.values()):
         g_on[dev] = torch.from_numpy(Gp).to(dev)
         c1_on[dev] = torch.from_numpy(c1).to(dev)
-    return devices, v, h, v_pad, g_on, c1_on
+    return plan, v, h, v_pad, g_on, c1_on
 
 
-def _assemble(bands, dev, v):
-    """Row bands (in row order) -> the (v, v) matrix on ``dev``."""
-    return torch.cat([b.to(dev) for b in bands])[:v, :v]
+def _shift(plan: _Plan, bufs: dict, tag: int = 0) -> dict:
+    """One ring step (JAX's ``lax.ppermute`` over the shard axis): the
+    block of every shard moves to shard k + 1 mod D.  ``bufs`` maps each
+    of this process's shards to its block (a tuple of tensors of one
+    shape on every shard); returns the blocks they hold after the step.
+    Within a process a block moves with ``.to``; between processes as host
+    copies over gloo, each process posting every send and receive of its
+    shards before waiting on any (``tag`` tells concurrent rings apart)."""
+    import torch.distributed as dist
+
+    d = plan.n
+    width = max((len(b) for b in bufs.values()), default=0)
+    ops, sent, got = [], [], {}
+    for k, blk in bufs.items():
+        dst = (k + 1) % d
+        if plan.owners[dst] != plan.rank:
+            for i, t in enumerate(blk):
+                host = t.cpu().contiguous()
+                sent.append(host)
+                ops.append(dist.isend(host, plan.owners[dst],
+                                      tag=tag + width * dst + i))
+    for k, blk in bufs.items():
+        src = (k - 1) % d
+        if plan.owners[src] == plan.rank:
+            got[k] = bufs[src]
+            continue
+        got[k] = tuple(torch.empty(t.shape, dtype=t.dtype) for t in blk)
+        for i, h in enumerate(got[k]):
+            ops.append(dist.irecv(h, plan.owners[src],
+                                  tag=tag + width * k + i))
+    for op in ops:
+        op.wait()
+    return {k: tuple(t.to(plan.devices[k]) for t in blk)
+            for k, blk in got.items()}
+
+
+def _output(plan: _Plan, bands, vb: int, v: int):
+    """(r2, dp) from this process's bands [(band index, r2, dp)]: in one
+    process the (v, v) matrices on the first shard's device, rows in
+    natural order; across processes two lists of :class:`RowBand`."""
+    bands = sorted(bands, key=lambda b: b[0])
+    if not plan.spans:
+        first = plan.devices[0]
+        return tuple(torch.cat([b[i].to(first) for b in bands])[:v, :v]
+                     for i in (1, 2))
+    r2s, dps = [], []
+    for b, r2, dp in bands:
+        lo, hi = min(b * vb, v), min((b + 1) * vb, v)
+        if hi > lo:  # a band wholly in the padding holds no row
+            r2s.append(RowBand(slice(lo, hi), r2[:hi - lo, :v]))
+            dps.append(RowBand(slice(lo, hi), dp[:hi - lo, :v]))
+    return r2s, dps
 
 
 def all_pairs_replicated(G, n_haplotypes=None, mesh=None):
     """Row-band sweep with G on every device: shard k computes rows
     [k*V/D, (k+1)*V/D) against all columns.  Returns (r2, d_prime), each
-    (V, V) f32 on the first device."""
-    devices, v, h, v_pad, g_on, c1_on = _prep(G, mesh, 1)
+    (V, V) f32 on the first device (across processes: this process's
+    :class:`RowBand` lists)."""
+    plan, v, h, v_pad, g_on, c1_on = _prep(G, mesh, 1)
     n_hap = h if n_haplotypes is None else int(n_haplotypes)
-    vb = v_pad // len(devices)
-    r2s, dps = [], []
-    for k, dev in enumerate(devices):
+    vb = v_pad // plan.n
+    bands = []
+    for k, dev in plan.devices.items():
         rows = slice(k * vb, (k + 1) * vb)
         with device_guard(dev):
             r2, dp = _band_ld(g_on[dev][rows], g_on[dev], c1_on[dev][rows],
                               c1_on[dev], n_hap)
-        r2s.append(r2)
-        dps.append(dp)
-    return _assemble(r2s, devices[0], v), _assemble(dps, devices[0], v)
+        bands.append((k, r2, dp))
+    return _output(plan, bands, vb, v)
 
 
 def all_pairs_ring(G, n_haplotypes=None, mesh=None):
     """Ring sweep: shard k holds band k; at step s it multiplies its band
     by the block that started on shard (k - s) mod D, then passes the
     block to shard k + 1.  After D steps every shard holds its full
-    (V/D, V) row band.  Returns (r2, d_prime) on the first device."""
-    devices, v, h, v_pad, g_on, c1_on = _prep(G, mesh, 1)
+    (V/D, V) row band.  Returns (r2, d_prime) on the first device (across
+    processes: this process's :class:`RowBand` lists)."""
+    plan, v, h, v_pad, g_on, c1_on = _prep(G, mesh, 1)
     n_hap = h if n_haplotypes is None else int(n_haplotypes)
-    d = len(devices)
+    d = plan.n
     vb = v_pad // d
-    band = [(g_on[dev][k * vb:(k + 1) * vb], c1_on[dev][k * vb:(k + 1) * vb])
-            for k, dev in enumerate(devices)]
-    buf = list(band)
-    acc = [(torch.zeros((vb, v_pad), dtype=torch.float32, device=dev),
-            torch.zeros((vb, v_pad), dtype=torch.float32, device=dev))
-           for dev in devices]
+    band = {k: (g_on[dev][k * vb:(k + 1) * vb],
+                c1_on[dev][k * vb:(k + 1) * vb])
+            for k, dev in plan.devices.items()}
+    buf = dict(band)
+    acc = {k: (torch.zeros((vb, v_pad), dtype=torch.float32, device=dev),
+               torch.zeros((vb, v_pad), dtype=torch.float32, device=dev))
+           for k, dev in plan.devices.items()}
     for s in range(d):
-        for k, dev in enumerate(devices):
+        for k, dev in plan.devices.items():
             src = (k - s) % d
             with device_guard(dev):
                 r2, dp = _band_ld(band[k][0], buf[k][0], band[k][1],
                                   buf[k][1], n_hap)
                 acc[k][0][:, src * vb:(src + 1) * vb] = r2
                 acc[k][1][:, src * vb:(src + 1) * vb] = dp
-        # the ppermute: shard k's block moves on to shard k + 1
-        buf = [tuple(t.to(devices[k]) for t in buf[(k - 1) % d])
-               for k in range(d)]
-    return (_assemble([a[0] for a in acc], devices[0], v),
-            _assemble([a[1] for a in acc], devices[0], v))
+        if s + 1 < d:
+            buf = _shift(plan, buf)
+    return _output(plan, [(k, *acc[k]) for k in acc], vb, v)
 
 
 def all_pairs_trapezoid(G, n_haplotypes=None, mesh=None):
@@ -145,10 +250,11 @@ def all_pairs_trapezoid(G, n_haplotypes=None, mesh=None):
     3 band-by-block products at step 0 and 2 after.  Cells above the
     diagonal of a diagonal block are multiplied by 0, as in JAX.  Returns
     the full (V, V) r^2 and D' with the strict upper triangle zero, rows
-    in natural order, on the first device."""
-    devices, v, h, v_pad, g_on, c1_on = _prep(G, mesh, 2)
+    in natural order, on the first device (across processes: this
+    process's :class:`RowBand` lists)."""
+    plan, v, h, v_pad, g_on, c1_on = _prep(G, mesh, 2)
     n_hap = h if n_haplotypes is None else int(n_haplotypes)
-    d = len(devices)
+    d = plan.n
     vb = v_pad // (2 * d)
 
     def band(dev, b):
@@ -164,18 +270,18 @@ def all_pairs_trapezoid(G, n_haplotypes=None, mesh=None):
         acc[0][:, c_band * vb:(c_band + 1) * vb] = r2 * keep
         acc[1][:, c_band * vb:(c_band + 1) * vb] = dp * keep
 
-    low = [band(dev, k) for k, dev in enumerate(devices)]
-    high = [band(dev, 2 * d - 1 - k) for k, dev in enumerate(devices)]
-    buf_a, buf_b = list(low), list(high)
+    low = {k: band(dev, k) for k, dev in plan.devices.items()}
+    high = {k: band(dev, 2 * d - 1 - k) for k, dev in plan.devices.items()}
+    buf_a, buf_b = dict(low), dict(high)
 
     def zeros(dev):
         return (torch.zeros((vb, v_pad), dtype=torch.float32, device=dev),
                 torch.zeros((vb, v_pad), dtype=torch.float32, device=dev))
 
-    lo_acc = [zeros(dev) for dev in devices]
-    hi_acc = [zeros(dev) for dev in devices]
+    lo_acc = {k: zeros(dev) for k, dev in plan.devices.items()}
+    hi_acc = {k: zeros(dev) for k, dev in plan.devices.items()}
     for s in range(d):
-        for k, dev in enumerate(devices):
+        for k, dev in plan.devices.items():
             src = (k - s) % d          # low-family band index in buf_a
             src_hi = 2 * d - 1 - src   # high-family band index in buf_b
             with device_guard(dev):
@@ -186,11 +292,9 @@ def all_pairs_trapezoid(G, n_haplotypes=None, mesh=None):
                 if src >= k:  # ... and the high blocks src_hi <= 2D-1-k
                     band_block(high[k], buf_b[k], 2 * d - 1 - k, src_hi,
                                hi_acc[k])
-        buf_a = [tuple(t.to(devices[k]) for t in buf_a[(k - 1) % d])
-                 for k in range(d)]
-        buf_b = [tuple(t.to(devices[k]) for t in buf_b[(k - 1) % d])
-                 for k in range(d)]
-    # natural row order: band k is shard k's low band, band 2D-1-k its high
-    rows = [lo_acc[k] for k in range(d)] + [hi_acc[k] for k in reversed(range(d))]
-    return (_assemble([r[0] for r in rows], devices[0], v),
-            _assemble([r[1] for r in rows], devices[0], v))
+        if s + 1 < d:
+            buf_a = _shift(plan, buf_a)
+            buf_b = _shift(plan, buf_b, tag=2 * d)
+    bands = ([(k, *lo_acc[k]) for k in lo_acc]
+             + [(2 * d - 1 - k, *hi_acc[k]) for k in hi_acc])
+    return _output(plan, bands, vb, v)

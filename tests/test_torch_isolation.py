@@ -82,6 +82,18 @@ def test_the_walk_covers_the_engine_and_its_tools():
     } <= set(_port_modules())
 
 
+def test_the_walk_covers_the_triangle_and_the_entry_points():
+    """... and ld_triangle with its heatmap writer and CLIs, the
+    multiplexer and the entry points of ``entry``."""
+    assert {
+        "ld_tools_tpu_torch.io.heatmap", "ld_tools_tpu_torch.tools.triangle",
+        "ld_tools_tpu_torch.cli.ld_triangle_cli_en",
+        "ld_tools_tpu_torch.cli.ld_triangle_cli_ru",
+        "ld_tools_tpu_torch.ld_triangle", "ld_tools_tpu_torch.__main__",
+        "ld_tools_tpu_torch.entry",
+    } <= set(_port_modules())
+
+
 def test_sources_import_no_jax_and_nothing_of_the_jax_package():
     for root, dirs, files in os.walk(PORT_DIR):
         if "_build" in dirs:  # build outputs, not sources of the port

@@ -3,8 +3,8 @@ tools on the same synthetic stores: ld_lite's table string and ld_area's
 TSV, JSON and rsIDs files must be byte-identical, on autosomes and on
 chrX/chrY (mixed ploidy), and the errors the same.  Mirrors
 tests/test_tools_e2e.py and tests/test_ploidy_e2e.py.  Also the ported
-CLIs' RU/EN identity and flag surface (tests/test_cli.py), and -E cuda
-raising without a card before anything is prepared.
+CLIs' RU/EN identity and flag surface (tests/test_cli.py; ld_triangle's
+too), and -E cuda raising without a card before anything is prepared.
 """
 
 import os
@@ -279,7 +279,7 @@ def _texts(tool):
             for lang in ("en", "ru")]
 
 
-@pytest.mark.parametrize("tool", ["lite", "area"])
+@pytest.mark.parametrize("tool", ["lite", "area", "triangle"])
 def test_ru_en_parsers_identical(tool):
     """(test_cli.py:29) RU and EN build one flag surface."""
     build = getattr(_shared, f"build_{tool}_parser")
@@ -288,7 +288,7 @@ def test_ru_en_parsers_identical(tool):
     assert _signature(build("V", en)) == _signature(build("V", ru))
 
 
-@pytest.mark.parametrize("tool", ["lite", "area"])
+@pytest.mark.parametrize("tool", ["lite", "area", "triangle"])
 def test_flag_surface_is_jax_plus_engine(tool):
     """(test_cli.py:41) The JAX tool's flags, names, defaults and
     choices, and -E/--engine {cuda, torch} (default cuda) beside them."""
