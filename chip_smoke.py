@@ -113,7 +113,19 @@ Phases, each of which exits non-zero on any failure:
             table with the 2,000-variant hover microbenchmark, the
             10,000-variant columnar heatmap; the engine's counts on the
             card in each) with their artifact.  Each reports its own launch
-            counts, and each must have launched its kernels and no other.
+            counts, and each must have launched its kernels and no other;
+7. measure  the measurement scripts, each as ``python -m``: the kernel
+            smoke artifact (``bench.smoke``: the JAX smoke suite's 17
+            configurations of K1-K6 against numpy oracles, every one ok,
+            launches from K1-K6 only), the scaling model
+            (``bench.scaling_model``: dispatch, H2D, D2H and K5's rate,
+            each finite and positive), the sharded-scan scaling at chr21
+            scale (``bench.scaling``: 1, 2, 4 and 8 shards on the card,
+            equal hits; K5 and K3, K7 past one shard) and suite config wg
+            at 2 chromosomes and 0.5 GiB of BGZF (2,504 samples: prep, the
+            re-prep a no-op, the ld_scan tool with K5 and K3; each
+            chromosome's TSV against an f64 recount of sampled hits and
+            pairs).
 
 K8 (the staged triangle kernel, ``ld_stage_blocks``: K1's kernel at four
 epilogues) is held against its plain version bit for bit at every stage
@@ -124,7 +136,7 @@ timed there (the stage split).  So are K1, K1b and K2 at the 512- and
 
 It ends with a JSON line of the build time, the scans' phases and launch
 counts, ld_area's, ld_triangle's and the chrX scan's phases, the sweeps',
-the entry points' and the headline record, a ``kernels`` JSON line, the
+the entry points', the headline and the measurement scripts' records, a ``kernels`` JSON line, the
 nvidia-smi line and, last, the device JSON line.  It needs the repository around it and a CUDA card.
 """
 
@@ -2421,13 +2433,13 @@ def _parity_lite(pairs):
             f"equals -E torch: {vals}")
 
 
-def _run_module(module, *args, timeout=600):
+def _run_module(module, *args, timeout=600, env=None):
     """``python -m module args`` from the repository root, as a user runs
-    it; it must exit 0.  Returns (stdout, stderr, the JSON launch report
-    it prints on stderr: the counts of its own process, which start at 0
-    and are read at its end)."""
+    it (``env``: variables to add); it must exit 0.  Returns (stdout,
+    stderr, the JSON launch report it prints on stderr: the counts of its
+    own process, which start at 0 and are read at its end)."""
     here = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ, PYTHONPATH=here)
+    env = dict(os.environ, PYTHONPATH=here, **(env or {}))
     cmd = f"python -m {module} {' '.join(args)}".strip()
     t0 = time.perf_counter()
     proc = subprocess.run([sys.executable, "-m", module, *args], cwd=here,
@@ -2534,6 +2546,163 @@ def phase_bench(work, results):
     return head
 
 
+# the launch sites of the smoke artifact's configurations: K1 (int8 rows,
+# and packed rows unpacked on the card by plain tensor shifts), K2, K3, K4,
+# K5 and K6
+SMOKE_SITES = {"ld_triangle_blocks", "ld_triangle_blocks_packed",
+               "ld_band_sweep_blocks", "ld_band_sweep_blocks_packed",
+               "ld_band_count", "ld_band_count_packed"}
+SCALING_MESHES = [1, 2, 4, 8]
+WG_SCALE = "2,0.5"  # config wg cut to 2 chromosomes, 0.5 GiB of BGZF
+WG_RERUN_S = 5.0   # the re-prep is a no-op
+WG_WINDOW_ROWS = 2000  # 100 kb at the fixture's 50 bp spacing
+
+
+def _check_wg_tsv(chrom, data, path, seed):
+    """One chromosome's scan TSV of config wg against an f64 recount from
+    the store: sampled hits' strings, and sampled pairs in the window
+    (and just past it) are hits exactly when their rounded f64 r^2 >= 0.8
+    and they lie in the window."""
+    from ld_tools_tpu_torch.ingest import pack
+    from ld_tools_tpu_torch.ingest.store import ChromData
+
+    cd = ChromData(data, chrom)
+    gp, pos = cd.packed, np.asarray(cd.pos)
+    c1 = pack.popcounts(gp)
+    v = gp.shape[0]
+    i, j, r2s, dps = read_tsv(path, pos)
+    check(len(i) > 0, f"wg chr{chrom}: no hits")
+    check(bool(np.all(i > j)) and bool(np.all(pos[i] - pos[j] <= 100_000)),
+          f"wg chr{chrom}: hits must have i > j and lie in the window")
+    key = np.sort(i * v + j)
+    check(bool(np.all(np.diff(key) > 0)), f"wg chr{chrom}: duplicate hits")
+    rng = np.random.default_rng(seed)
+    pick = rng.choice(len(i), size=min(3000, len(i)), replace=False)
+    want_r2, want_dp, _ = _recount(gp, i[pick], j[pick], c1)
+    check(np.array_equal(want_r2, r2s[pick]), f"wg chr{chrom}: hit r^2")
+    check(np.array_equal(want_dp, dps[pick]), f"wg chr{chrom}: hit D'")
+    a = rng.integers(WG_WINDOW_ROWS + 8, v, size=6000)
+    b = np.concatenate([a[:3000] - rng.integers(1, 8, size=3000),
+                        a[3000:] - rng.integers(1, WG_WINDOW_ROWS + 8,
+                                                size=3000)])
+    _, _, r2_round = _recount(gp, a, b, c1)
+    want = (r2_round >= 0.8) & (pos[a] - pos[b] <= 100_000)
+    is_hit = np.isin(a * v + b, key)
+    check(np.array_equal(is_hit, want),
+          f"wg chr{chrom}: {int((is_hit != want).sum())} of {len(a)} sampled "
+          "pairs disagree with the f64 recount")
+    log(f"  wg chr{chrom}: {len(i)} hits; {len(pick)} hits and {len(a)} "
+        f"pairs ({int(is_hit.sum())} hits among them) agree with the f64 "
+        "recount")
+
+
+def phase_measure(work):
+    """The measurement scripts, as subprocesses: the kernel smoke artifact
+    (17 configurations, every one ok, launches from K1-K6 only), the
+    scaling model (its measured block finite and positive; K5 launched),
+    the sharded-scan scaling at its card defaults (four mesh sizes, equal
+    hits; K5 and K3, K7 past one shard) and suite config wg at WG_SCALE
+    (its rows, hits, the re-prep a no-op, K5 and K3 launched, each
+    chromosome's TSV against an f64 recount).  Returns their records."""
+    from ld_tools_tpu_torch.bench.smoke import NAMES
+
+    out = {}
+    art = os.path.join(work, "smoke.json")
+    _, _, rep = _run_module("ld_tools_tpu_torch.bench.smoke", "--out", art)
+    _only_launched("bench.smoke", rep["launches"], SMOKE_SITES)
+    with open(art) as fh:
+        smoke = json.load(fh)
+    rows = smoke["results"]
+    check([r["config"] for r in rows] == NAMES and all(r["ok"] for r in rows)
+          and smoke["failures"] == 0, f"bench.smoke artifact {rows}")
+    errs = {r["config"]: r.get("max_abs_err_vs_f32_order") for r in rows}
+    f32_errs = [e for n, e in errs.items() if e is not None and "meas" not in n]
+    out["smoke"] = {"max_f32_err": max(f32_errs),
+                    "max_meas_err": max(e for n, e in errs.items()
+                                        if "meas" in n),
+                    "seconds": sum(r["seconds"] for r in rows),
+                    "launches": {k: n for k, n in rep["launches"].items() if n}}
+    for r in rows:
+        log(f"  smoke: {json.dumps(r)}")
+    log(f"  smoke: 17 configurations ok, largest f32 error "
+        f"{out['smoke']['max_f32_err']:.3g} (meas {out['smoke']['max_meas_err']:.3g}); "
+        f"launches {out['smoke']['launches']}")
+
+    art = os.path.join(work, "scaling_model.json")
+    _, _, rep = _run_module("ld_tools_tpu_torch.bench.scaling_model", "--out",
+                            art)
+    _only_launched("bench.scaling_model", rep["launches"], {"ld_band_count"})
+    with open(art) as fh:
+        model = json.load(fh)
+    meas = model["measured"]
+    for k in ("dispatch_s", "h2d_MBps", "d2h_MBps", "count_call_fixed_s",
+              "count_device_gpairs_s"):
+        check(np.isfinite(meas[k]) and meas[k] > 0, f"scaling model {k}: "
+              f"{meas[k]}")
+    check(meas["count_blocks_measured"] == 136, f"scaling model {meas}")
+    chr21 = model["models"]["chr21_scan"]
+    effs = {f"{link}/{phase}": [chr21[link][phase][str(n)]["efficiency"]
+                                for n in (2, 4, 8)]
+            for link in ("relay", "direct", "multihost_direct")
+            for phase in ("cold", "warm_resident")}
+    out["scaling_model"] = {"measured": meas, "chr21_eff_2_4_8": effs,
+                            "launches": rep["launches"]["ld_band_count"]}
+    log(f"  scaling model: measured {json.dumps(meas)}")
+    log(f"  scaling model: chr21 efficiency at 2/4/8 {json.dumps(effs)}")
+
+    stdout, _, rep = _run_module("ld_tools_tpu_torch.bench.scaling",
+                                 timeout=900)
+    _only_launched("bench.scaling", rep["launches"],
+                   {"ld_band_count", "ld_band_count_sharded",
+                    "ld_band_sweep_blocks"})
+    rows = [json.loads(ln) for ln in stdout.splitlines()
+            if ln.startswith('{"devices"')]
+    check([r["devices"] for r in rows] == SCALING_MESHES,
+          f"bench.scaling rows {rows}")
+    check(rows[0]["hits"] > 0 and len({r["hits"] for r in rows}) == 1,
+          f"bench.scaling hits {[r['hits'] for r in rows]}")
+    for r in rows:
+        count = "ld_band_count" if r["devices"] == 1 else "ld_band_count_sharded"
+        check(r["launches"].get(count, 0) > 0
+              and r["launches"].get("ld_band_sweep_blocks", 0) > 0,
+              f"bench.scaling at {r['devices']} shards launched "
+              f"{r['launches']}")
+        log(f"  scaling: {json.dumps(r)}")
+    out["scaling"] = rows
+
+    art = os.path.join(work, "suite_wg.json")
+    keep = os.path.join(work, "wg")
+    _, _, rep = _run_module(
+        "ld_tools_tpu_torch.bench.suite", "--configs", "wg", "--out", art,
+        timeout=900, env={"TPU_LD_WG_SCALE": WG_SCALE, "TPU_LD_WG_DIR": keep})
+    _only_launched("bench.suite --configs wg", rep["launches"],
+                   {"ld_band_count", "ld_band_sweep_blocks"})
+    with open(art) as fh:
+        rows = json.load(fh)["results"]
+    by = {r["config"]: r for r in rows}
+    check([r["config"] for r in rows] == [
+        "wg_prep_5gb", "wg_prep_5gb_rerun", "wg_scan_100kb",
+        "wg_e2e_prep_plus_scan"], f"suite wg rows {rows}")
+    scan = by["wg_scan_100kb"]
+    check(scan["hits"] > 0 and scan["device"] == "cuda"
+          and scan["launches"].get("ld_band_count", 0) > 0
+          and scan["launches"].get("ld_band_sweep_blocks", 0) > 0,
+          f"suite wg scan {scan}")
+    check(by["wg_prep_5gb_rerun"]["seconds"] < WG_RERUN_S,
+          f"suite wg re-prep {by['wg_prep_5gb_rerun']}")
+    (data,) = [os.path.join(keep, n) for n in os.listdir(keep)]
+    for k, chrom in enumerate(sorted(scan["chroms"])):
+        check(not scan["chroms"][chrom]["resident_packed"],
+              f"suite wg chr{chrom} ran packed: {scan}")
+        _check_wg_tsv(chrom, data, os.path.join(
+            data, "scan_out", f"ld_scan_chr{chrom}_r_0.8.tsv"), seed=k)
+    shutil.rmtree(keep, ignore_errors=True)
+    for r in rows:
+        log(f"  suite: {json.dumps(r)}")
+    out["wg"] = rows
+    return out
+
+
 def main():
     t_start = time.perf_counter()
 
@@ -2581,6 +2750,7 @@ def main():
         del stores
         torch.cuda.empty_cache()  # the bench processes share the card
         headline = phase_bench(work, results)
+        measure = phase_measure(work)
     finally:
         shutil.rmtree(work, ignore_errors=True)
     kernels = []
@@ -2603,7 +2773,8 @@ def main():
     print(json.dumps({"build_s": build["seconds"], "scan": scan,
                       "area": area, "triangle": triangle,
                       "mixed_scan": mixed, "sharded": sharded,
-                      "entry": entry, "headline": headline},
+                      "entry": entry, "headline": headline,
+                      "measure": measure},
                      default=float))
     # the build's per-instance resources again, past the long phases
     print(json.dumps({"ptxas": build["ptxas"], "sass": build["sass"]}))

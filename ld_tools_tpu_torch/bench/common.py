@@ -24,6 +24,25 @@ def log(msg) -> None:
     print(msg, file=sys.stderr, flush=True)
 
 
+def sync(dev: torch.device) -> None:
+    """Wait for the card's queued work (nothing on the CPU): before every
+    stop of a host clock."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def launch_counts() -> dict:
+    """Every kernel launch site's count, by name."""
+    return {fn.__name__: fn.launches for fn in lk.LAUNCH_SITES}
+
+
+def launches_since(before: dict) -> dict:
+    """The sites that launched since ``before`` (a :func:`launch_counts`),
+    with their launches."""
+    return {k: n - before[k] for k, n in launch_counts().items()
+            if n > before[k]}
+
+
 def peak_tflops(int8: bool) -> float:
     """The card's dense tensor-core peak, int8 (TOP/s) or bf16 (TFLOP/s),
     from CHIP_PEAKS; raises without a known card."""
@@ -81,5 +100,4 @@ def log_launches(**extra) -> None:
     """The kernel launch counts of this process (every site, 0 included)
     as one JSON line on stderr: proof that the timed path went through
     the kernels."""
-    counts = {fn.__name__: fn.launches for fn in lk.LAUNCH_SITES}
-    log(json.dumps({"launches": counts, **extra}))
+    log(json.dumps({"launches": launch_counts(), **extra}))

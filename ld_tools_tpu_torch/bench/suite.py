@@ -1,5 +1,5 @@
-"""Benchmark suite: the BASELINE configs the port can run, with a JSON
-artifact (the counterpart of scripts/bench_suite.py).
+"""Benchmark suite: the BASELINE configs, with a JSON artifact (the
+counterpart of scripts/bench_suite.py).
 
     python -m ld_tools_tpu_torch.bench.suite [--configs 0,4,5]
         [--out FILE.json] [--device cuda|cpu]
@@ -8,7 +8,7 @@ Each config prints one labelled line and adds rows to the artifact
 (``--out``); the headline metric stays in ``python -m
 ld_tools_tpu_torch.bench``.
 
-Ported configs:
+Configs:
 0.  ingest: the native BGZF scanner (the port's ``ingest.native``),
     single vs multi-thread.
 1.  ld_lite: one pair on a synthetic 100-variant x 2,504-sample store,
@@ -39,9 +39,21 @@ Ported configs:
     (``TriangleRunner._build_heatmap_columnar``, the pooled overview HTML
     and the full-resolution JSON), cold and warm, with its phases.
 
-Not ported, and refused rather than skipped: 0gb and wg, the GB-scale
-ingest and the whole-genome prep and scan, are measurement work still to
-port (ROADMAP queue 1, item 8).
+0gb. GB-scale ingest: a >= 1 GiB BGZF fixture of 2,504 samples
+    (``$TPU_LD_GB_FIXTURE`` names a path to generate it into once and
+    reuse), the native scanner (``ingest/_vcfpack_ctypes.scan_packed``) in
+    a fresh child process at 1, 2 and all threads: wall, VCF-text MB/s,
+    variants/s and peak RSS.  Host only: the card plays no part.
+wg. Whole genome: 6 chromosomes, 5 GiB of BGZF at 2,504 samples (a
+    correlated cycle of 4,096 rows, so that identical rows lie farther
+    apart than the window), the port's ``prep_intgen_data``, its re-run
+    (a no-op), then the ``ld_scan`` tool (``tools/scan.run``) over every
+    chromosome with a 100 kb window and r^2 >= 0.8, on the suite's device,
+    with the scans' phases and kernel launches.  ``$TPU_LD_WG_SCALE``
+    ("chroms,GiB") shrinks the fixture; ``$TPU_LD_WG_DIR`` names a
+    directory to make the fixture, its store and the TSVs in and keep
+    (otherwise a temporary directory, removed at the end).  The fixture's
+    generation is outside every timed row.
 
 Sizes are the module constants below, so a test can shrink them.
 """
@@ -51,9 +63,12 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import shutil
 import subprocess
+import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -79,6 +94,13 @@ CONFIG6_VARIANTS = 10_000
 CONFIG6B_VARIANTS = 2000
 CONFIG6C_VARIANTS = 10_000
 SCAN_RUN = 64  # rows per run of identical base rows in the scan data
+GB_SAMPLES = 2504
+GB_TARGET_BYTES = 1 << 30
+WG_SAMPLES = 2504
+WG_CHROMS = 6
+WG_GIB = 5
+WG_BASE_ROWS = 4096     # x 50 bp = 204.8 kb between identical rows
+WG_MAX_DIST = 100_000   # ld_area's default flank
 
 
 class Recorder:
@@ -96,11 +118,6 @@ class Recorder:
                "seconds": round(seconds, 3), **extra}
         self.rows.append(row)
         return row
-
-
-def _sync(dev) -> None:
-    if dev.type == "cuda":
-        torch.cuda.synchronize(dev)
 
 
 def config0(rec, dev):
@@ -154,9 +171,6 @@ def config1(rec, dev):
     """ld_lite: one pair, cold and warm (scripts/bench_suite.py config1):
     the query, without the table's render (tabulate, which the card's
     machine may lack)."""
-    import shutil
-    import types
-
     from ld_tools_tpu_torch.tools import lite
 
     d, rs = _env(CONFIG1_SAMPLES, {"1": CONFIG1_VARIANTS}, seed=1)
@@ -186,9 +200,6 @@ def _rounded(phases: dict) -> dict:
 def config2(rec, dev):
     """ld_triangle: 500 variants, EUR, -o both (scripts/bench_suite.py
     config2); each run's files are written anew."""
-    import shutil
-    import types
-
     from ld_tools_tpu_torch.ops import engine
     from ld_tools_tpu_torch.tools import triangle
 
@@ -224,9 +235,6 @@ def config2(rec, dev):
 def config3(rec, dev):
     """ld_area: 50 queries, 250 kb flanks (scripts/bench_suite.py
     config3); each run's files are written anew."""
-    import shutil
-    import types
-
     from ld_tools_tpu_torch.ops import engine
     from ld_tools_tpu_torch.tools import area
 
@@ -364,12 +372,12 @@ def config5(rec, dev):
             epilogue="fast")
 
     triangle(packed_by_chrom[0])  # first-call costs outside the timing
-    _sync(dev)
+    common.sync(dev)
     t0 = time.perf_counter()
     total_pairs = 0
     for gp in packed_by_chrom:
         triangle(gp)
-        _sync(dev)
+        common.sync(dev)
         total_pairs += V * (V + 1) / 2
     dt = time.perf_counter() - t0
     gpps = total_pairs / dt / 1e9
@@ -383,8 +391,6 @@ def _triangle_self(dev, mtype, heatmap_json):
     """The bare ``self`` the suite hands TriangleRunner's streamed
     functions (scripts/bench_suite.py config6 / config6c): a config on
     ``dev`` and the data's population and gender labels."""
-    import types
-
     from ld_tools_tpu_torch.tools.triangle import TriangleConfig
 
     cfg = TriangleConfig(
@@ -424,8 +430,6 @@ def _triangle_data(seed, V):
 def config6(rec, dev):
     """BASELINE metric #2 (scripts/bench_suite.py config6): the 10k table,
     then the 2,000-variant per-cell hover microbenchmark."""
-    import shutil
-
     from ld_tools_tpu_torch.ops import engine
     from ld_tools_tpu_torch.ops.engine import exact_all_pairs
     from ld_tools_tpu_torch.tools.triangle import TriangleRunner
@@ -487,8 +491,6 @@ def config6(rec, dev):
 def config6c(rec, dev):
     """The 10k columnar heatmap (scripts/bench_suite.py config6c): int16
     value triangles and O(n) strings from streamed row blocks."""
-    import shutil
-
     from ld_tools_tpu_torch.ops import engine
     from ld_tools_tpu_torch.tools.triangle import TriangleRunner
 
@@ -525,12 +527,259 @@ def config6c(rec, dev):
         shutil.rmtree(out_dir, ignore_errors=True)
 
 
-def _not_ported(key, what, item):
-    def config(rec, dev):
-        raise NotImplementedError(
-            f"suite config {key} ({what}) is not ported yet "
-            f"(ROADMAP queue 1, item {item})")
-    return config
+def _write_gb_fixture(path, chrom, n_samples, target_bytes, rng,
+                      level=1, rs_base=0, n_base=256, correlated=False):
+    """Stream-generate a BGZF VCF of about ``target_bytes`` compressed for
+    one chromosome (scripts/bench_suite._write_gb_fixture on the port's
+    ``ingest.synth``); returns (n_variants, text_bytes).  Level 1: the
+    scanner inflates either way, and the generation stays off the timed
+    rows.
+
+    Genotype rows cycle through ``n_base`` pre-encoded lines, so variants
+    ``n_base`` apart are identical (r^2 = 1).  The whole-genome scan
+    takes ``correlated=True`` with a cycle longer than its window: the
+    pairs in a window then carry the base block's LD decay
+    (synth.correlated_haplotypes) and no duplicate rows."""
+    from ld_tools_tpu_torch.ingest import synth
+
+    if correlated:
+        base = synth.correlated_haplotypes(rng, n_base, 2 * n_samples)
+    else:
+        base = (
+            rng.random((n_base, 2 * n_samples))
+            < rng.uniform(0.05, 0.95, (n_base, 1))
+        ).astype(np.int8)
+    gt_lines = [synth._genotype_line_bytes(base[k]) for k in range(n_base)]
+    v = 0
+    text_bytes = 0
+    with open(path, "wb") as raw:
+        w = synth.BgzfWriter(raw, level=level)
+        w.write(b"##fileformat=VCFv4.1\n")
+        w.write(
+            b"#CHROM\tPOS\tID\tREF\tALT\tQUAL\tFILTER\tINFO\tFORMAT\t"
+            + "\t".join(f"S{i:05d}" for i in range(n_samples)).encode()
+            + b"\n"
+        )
+        cpfx = f"{chrom}\t".encode()
+        while raw.tell() < target_bytes:
+            for _ in range(n_base):
+                v += 1
+                line = (
+                    cpfx + f"{v * 50}\trs{rs_base + v}\tA\tG\t100\tPASS\t"
+                    f"VT=SNP\tGT\t".encode()
+                    + gt_lines[v % n_base] + b"\n"
+                )
+                w.write(line)
+                text_bytes += len(line)
+        w.close()
+    return v, text_bytes
+
+
+# the child of config 0gb: one scan in a fresh process, so that its peak
+# RSS is the scan's own.  A thread samples the resident set
+# (/proc/self/statm) every 5 ms while the scan runs in native code:
+# ru_maxrss would carry over the parent's peak through fork and exec.
+_GB_CHILD = """\
+import json, os, sys, threading, time
+from ld_tools_tpu_torch.ingest import _vcfpack_ctypes as nat
+page = os.sysconf("SC_PAGE_SIZE")
+def rss():
+    with open("/proc/self/statm") as fh:
+        return int(fh.read().split()[1]) * page
+peak = [rss()]
+done = threading.Event()
+def sample():
+    while not done.wait(0.005):
+        peak[0] = max(peak[0], rss())
+th = threading.Thread(target=sample)
+th.start()
+t0 = time.perf_counter()
+out = nat.scan_packed(sys.argv[1], n_threads=int(sys.argv[2]))
+dt = time.perf_counter() - t0
+done.set()
+th.join()
+peak[0] = max(peak[0], rss())
+print(json.dumps({"s": dt, "rss_mb": peak[0] / 2**20, "v": int(out[0].shape[0]),
+                  "packed_mb": out[0].nbytes / 1e6}))
+"""
+
+
+def config0gb(rec, dev):
+    """GB-scale ingest (scripts/bench_suite.config0gb): the native scanner
+    over a >= 1 GiB BGZF fixture in a fresh child process per thread
+    count, with its wall, VCF-text MB/s and peak RSS.  Host only."""
+    from ld_tools_tpu_torch.ingest import _vcfpack_ctypes
+
+    _vcfpack_ctypes._load()  # built before the timed children start
+    reuse = os.environ.get("TPU_LD_GB_FIXTURE")
+    tmp = None if reuse else tempfile.mkdtemp(prefix="tpu_ld_gb_")
+    try:
+        path = reuse or os.path.join(tmp, "1.vcf.gz")
+        if reuse and os.path.exists(reuse) and os.path.exists(
+                reuse + ".meta.json"):
+            with open(reuse + ".meta.json") as fh:
+                fix_meta = json.load(fh)
+            v, text_bytes = fix_meta["v"], fix_meta["text_bytes"]
+        else:
+            # with $TPU_LD_GB_FIXTURE, generated into the named path for
+            # the next run to reuse
+            os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+            t0 = time.perf_counter()
+            v, text_bytes = _write_gb_fixture(
+                path, "1", GB_SAMPLES, GB_TARGET_BYTES,
+                np.random.default_rng(0))
+            gen_s = time.perf_counter() - t0
+            with open(path + ".meta.json", "w") as fh:
+                json.dump({"v": v, "text_bytes": text_bytes}, fh)
+            print(f"config0gb fixture: {os.path.getsize(path) / 2**30:.2f} "
+                  f"GiB BGZF, {v} variants, {text_bytes / 2**30:.1f} GiB "
+                  f"text, generated in {gen_s:.0f}s")
+        size_gb = os.path.getsize(path) / 2**30
+        repo = os.path.dirname(os.path.dirname(os.path.dirname(
+            os.path.abspath(__file__))))
+        env = dict(os.environ, PYTHONPATH=repo)
+        for n_threads in sorted({1, 2, os.cpu_count() or 1}):
+            proc = subprocess.run(
+                [sys.executable, "-c", _GB_CHILD, path, str(n_threads)],
+                capture_output=True, text=True, timeout=3600, env=env)
+            if proc.returncode != 0:
+                raise RuntimeError(f"config0gb: the scan at {n_threads} "
+                                   f"threads failed:\n{proc.stderr[-2000:]}")
+            res = json.loads(proc.stdout.strip().splitlines()[-1])
+            mbps = text_bytes / res["s"] / 1e6
+            print(f"config0gb ingest nt={n_threads}: {res['s']:.1f}s, "
+                  f"{mbps:.0f} MB/s VCF text, {res['v'] / res['s']:.0f} "
+                  f"variants/s, peak RSS {res['rss_mb']:.0f} MB (packed "
+                  f"output {res['packed_mb']:.0f} MB)")
+            rec.record("0gb_ingest", res["s"], n_threads=n_threads,
+                       bgzf_gib=round(size_gb, 2), mb_per_s=round(mbps, 1),
+                       variants=res["v"],
+                       variants_per_s=round(res["v"] / res["s"], 1),
+                       peak_rss_mb=round(res["rss_mb"], 1),
+                       packed_mb=round(res["packed_mb"], 1))
+    finally:
+        if tmp:
+            shutil.rmtree(tmp, ignore_errors=True)
+
+
+# the scan reports' phases summed over the chromosomes of config wg
+WG_PHASES = ("host_prep_s", "upload_s", "count_s", "fetch_s", "finish_s",
+             "write_s", "blocks", "hit_blocks")
+
+
+def _wg_fixture(d, n_chroms, total_gib, scaled):
+    """Config wg's BGZF files and panel in ``d``; returns (variants, text
+    bytes, BGZF GiB)."""
+    from ld_tools_tpu_torch.ingest import synth
+
+    per_chrom = int(total_gib * (1 << 30)) // n_chroms + (
+        (1 << 20) if scaled else (64 << 20))
+    total_v = total_text = 0
+    for k in range(n_chroms):
+        chrom = str(k + 1)
+        v, tb = _write_gb_fixture(
+            os.path.join(d, f"{chrom}.vcf.gz"), chrom, WG_SAMPLES, per_chrom,
+            np.random.default_rng(100 + k), rs_base=k * 50_000_000,
+            n_base=WG_BASE_ROWS, correlated=True)
+        total_v += v
+        total_text += tb
+    synth.write_panel(
+        os.path.join(d, "samples.txt"),
+        [(f"S{i:05d}", "GBR", "EUR", "male" if i % 2 else "female")
+         for i in range(WG_SAMPLES)])
+    size_gb = sum(os.path.getsize(os.path.join(d, f"{c + 1}.vcf.gz"))
+                  for c in range(n_chroms)) / 2**30
+    return total_v, total_text, size_gb
+
+
+def config_wg(rec, dev):
+    """Whole-genome prep and scan (scripts/bench_suite.config_wg): the
+    fixture through ``prep_intgen_data`` in one call, the re-prep, then
+    the ld_scan tool over every chromosome (100 kb window, r^2 >= 0.8) on
+    the suite's device."""
+    from ld_tools_tpu_torch.ingest import HaplotypeStore, prep_intgen_data
+    from ld_tools_tpu_torch.tools import scan as scan_tool
+
+    n_chroms, total_gib = WG_CHROMS, WG_GIB
+    scale = os.environ.get("TPU_LD_WG_SCALE")
+    if scale:
+        c, g = scale.split(",")
+        n_chroms, total_gib = int(c), float(g)
+    keep = os.environ.get("TPU_LD_WG_DIR")
+    if keep:
+        os.makedirs(keep, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="tpu_ld_wg_", dir=keep or None)
+    try:
+        t0 = time.perf_counter()
+        total_v, total_text, size_gb = _wg_fixture(d, n_chroms, total_gib,
+                                                   bool(scale))
+        print(f"config_wg fixture: {n_chroms} chromosomes, {size_gb:.2f} GiB "
+              f"BGZF, {total_v} variants, {total_text / 2**30:.1f} GiB text, "
+              f"generated in {time.perf_counter() - t0:.0f}s")
+        t0 = time.perf_counter()
+        prep_intgen_data(d)
+        prep_s = time.perf_counter() - t0
+        print(f"config_wg prep: {prep_s:.1f}s end-to-end "
+              f"({total_text / prep_s / 1e6:.0f} MB/s text, "
+              f"{total_v / prep_s:.0f} variants/s)")
+        rec.record("wg_prep_5gb", prep_s, n_chroms=n_chroms,
+                   bgzf_gib=round(size_gb, 2),
+                   text_gib=round(total_text / 2**30, 2), variants=total_v,
+                   mb_per_s=round(total_text / prep_s / 1e6, 1),
+                   variants_per_s=round(total_v / prep_s, 1))
+        # prep on a complete store is a no-op
+        t0 = time.perf_counter()
+        prep_intgen_data(d)
+        rerun_s = time.perf_counter() - t0
+        print(f"config_wg re-prep (a no-op): {rerun_s:.2f}s")
+        rec.record("wg_prep_5gb_rerun", rerun_s)
+
+        max_dist = WG_MAX_DIST
+        scan_args = types.SimpleNamespace(
+            intgen_dir_path=d, skip_intgen_data_ver=True, gend_names="both",
+            pop_names="all", chroms="all",
+            trg_dir_path=os.path.join(d, "scan_out"), ld_measure="r_square",
+            ld_low_thres=0.8, max_dist=max_dist, checkpoint_dir=None,
+            engine=_engine(dev), devices=None)
+        store = HaplotypeStore(d)
+        pairs_in_window = 0
+        for c in store.chroms():
+            p = np.asarray(store.chrom(c).pos)
+            # for each i, the count of j < i with pos_i - pos_j <= max_dist
+            lo = np.searchsorted(p, p - max_dist, side="left")
+            pairs_in_window += int((np.arange(p.shape[0]) - lo).sum())
+        if dev.type == "cuda":
+            # the kernels' first-use build (nvcc, about 20 s) stays out of
+            # the timed scan, as the native scanner's stays out of 0gb's
+            from ld_tools_tpu_torch.ops import _cuda_build
+
+            _cuda_build.lib()
+        before = common.launch_counts()
+        t0 = time.perf_counter()
+        reports = scan_tool.run(scan_args)
+        scan_s = time.perf_counter() - t0
+        launches = common.launches_since(before)
+        hits = sum(r.n_hits for r in reports)
+        phases = {k: round(sum(r.stats.get(k, 0) for r in reports), 3)
+                  for k in WG_PHASES}
+        chroms = {r.chrom: {"hits": r.n_hits, "resident_packed":
+                            bool(r.stats.get("resident_packed"))}
+                  for r in reports}
+        print(f"config_wg scan: {scan_s:.1f}s for "
+              f"{pairs_in_window / 1e9:.2f} Gpairs in-window across "
+              f"{n_chroms} chromosomes, {hits} hits (r^2 >= 0.8, window "
+              f"{max_dist / 1000:.0f} kb), launches {launches}, "
+              f"phases={phases}")
+        rec.record("wg_scan_100kb", scan_s, n_chroms=n_chroms,
+                   variants=total_v, max_dist=max_dist,
+                   pairs_in_window=pairs_in_window, hits=hits,
+                   gpairs_per_s=round(pairs_in_window / scan_s / 1e9, 3),
+                   device=dev.type, phases=phases, launches=launches,
+                   chroms=chroms)
+        rec.record("wg_e2e_prep_plus_scan", prep_s + scan_s)
+    finally:
+        if not keep:
+            shutil.rmtree(d, ignore_errors=True)
 
 
 CONFIGS = {
@@ -543,8 +792,8 @@ CONFIGS = {
     "5": config5,
     "6": config6,
     "6c": config6c,
-    "0gb": _not_ported("0gb", "GB-scale ingest", 8),
-    "wg": _not_ported("wg", "whole-genome prep and scan", 8),
+    "0gb": config0gb,
+    "wg": config_wg,
 }
 
 

@@ -148,13 +148,113 @@ def test_suite_scan_data_is_the_jax_suites():
         np.testing.assert_array_equal(got, want)
 
 
-@pytest.mark.parametrize("key,item", [("0gb", 8), ("wg", 8)])
-def test_suite_unported_configs_raise(key, item):
-    """The configs still to port name the ROADMAP item that holds them
-    (queue 1: the measurement scripts are item 8)."""
-    with pytest.raises(NotImplementedError,
-                       match=f"ROADMAP queue 1, item {item}"):
-        suite.main(["--configs", key, "--device", "cpu"])
+@pytest.mark.parametrize("correlated", [True, False])
+def test_gb_fixture_is_the_jax_suites(correlated, tmp_path):
+    """The port's _write_gb_fixture writes the JAX suite's file byte for
+    byte (the same synth stream, lines and BGZF blocks)."""
+    from scripts.bench_suite import _write_gb_fixture
+
+    got, want = tmp_path / "port.vcf.gz", tmp_path / "jax.vcf.gz"
+    kw = dict(rs_base=7, n_base=64, correlated=correlated)
+    n_got = suite._write_gb_fixture(str(got), "3", 30, 200_000,
+                                    np.random.default_rng(5), **kw)
+    n_want = _write_gb_fixture(str(want), "3", 30, 200_000,
+                               np.random.default_rng(5), **kw)
+    assert n_got == n_want and n_got[0] % 64 == 0
+    assert got.read_bytes() == want.read_bytes()
+
+
+def _wg_rows(path):
+    """(i positions, j positions, r^2 strings) of a scan TSV."""
+    with open(path) as fh:
+        rows = [ln.rstrip("\n").split("\t") for ln in fh
+                if not ln.startswith("#")]
+    return [(int(r[0]), int(r[2]), r[5]) for r in rows]
+
+
+def test_suite_wg_at_a_small_scale(monkeypatch, tmp_path):
+    """Config wg at TPU_LD_WG_SCALE=2,0.002 with 500 samples on the CPU:
+    its four rows, hits, and chromosome 1's hit set and r^2 values equal
+    a brute-force recount with tests/oracle.py of the genotypes the
+    fixture wrote (regenerated with the JAX package's synth)."""
+    from ld_tools_tpu.ingest import synth as jax_synth
+    from ld_tools_tpu_torch.ingest.store import ChromData
+
+    monkeypatch.setenv("TPU_LD_WG_SCALE", "2,0.002")
+    monkeypatch.setenv("TPU_LD_WG_DIR", str(tmp_path))
+    monkeypatch.setattr(suite, "WG_SAMPLES", 500)
+    path = tmp_path / "suite.json"
+    rows = suite.main(["--configs", "wg", "--device", "cpu", "--out",
+                       str(path)])
+    assert [r["config"] for r in rows] == [
+        "wg_prep_5gb", "wg_prep_5gb_rerun", "wg_scan_100kb",
+        "wg_e2e_prep_plus_scan"]
+    prep, rerun, scan, e2e = rows
+    assert prep["n_chroms"] == scan["n_chroms"] == 2
+    assert scan["hits"] > 0 and scan["device"] == "cpu"
+    assert scan["launches"] == {}  # the plain versions launch nothing
+    assert scan["hits"] == sum(c["hits"] for c in scan["chroms"].values())
+    assert scan["pairs_in_window"] > scan["hits"]
+    assert set(scan["phases"]) == set(suite.WG_PHASES)
+    assert e2e["seconds"] == pytest.approx(
+        prep["seconds"] + scan["seconds"], abs=2e-3)
+    with open(path) as fh:
+        assert json.load(fh)["results"] == rows
+
+    (data,) = [p for p in tmp_path.iterdir() if p.is_dir()]
+    n = ChromData(str(data), "1").n_variants
+    n_hap = 2 * suite.WG_SAMPLES
+    base = jax_synth.correlated_haplotypes(
+        np.random.default_rng(100), suite.WG_BASE_ROWS, n_hap)
+    # variant v (1-based) at position 50 v carries base line v % n_base
+    G = base[np.arange(1, n + 1) % suite.WG_BASE_ROWS]
+    window = suite.WG_MAX_DIST // 50
+    c1 = G.sum(axis=1).astype(np.float64)
+    p = c1 / n_hap
+    want = {}
+    for lo in range(0, n, 512):
+        hi = min(lo + 512, n)
+        j0 = max(0, lo - window)
+        cab = G[lo:hi].astype(np.float64) @ G[j0:hi].T.astype(np.float64)
+        d = cab / n_hap - p[lo:hi, None] * p[None, j0:hi]
+        den = (p * (1 - p))[lo:hi, None] * (p * (1 - p))[None, j0:hi]
+        with np.errstate(divide="ignore", invalid="ignore"):
+            r2 = np.where(den > 0, d * d / den, 0.0)
+        ii, jj = np.nonzero(r2 >= 0.75)  # no pair below rounds to 0.8
+        for i, j in zip(ii + lo, jj + j0):
+            if j < i <= j + window:
+                ref = reference_oracle_ld(G[i].tolist(), G[j].tolist())
+                if ref["r_square"] >= 0.8:
+                    want[(50 * (i + 1), 50 * (j + 1))] = ref["r_square"]
+    got = _wg_rows(data / "scan_out" / "ld_scan_chr1_r_0.8.tsv")
+    assert len(got) == scan["chroms"]["1"]["hits"] > 0
+    assert {(a, b) for a, b, _ in got} == set(want)
+    for a, b, r2 in got:
+        assert float(r2) == want[a, b]
+
+
+def test_suite_0gb_on_a_small_fixture(monkeypatch, tmp_path):
+    """Config 0gb generates its fixture into $TPU_LD_GB_FIXTURE and keeps
+    it, one row per thread count; the next run reuses it."""
+    monkeypatch.setattr(suite, "GB_SAMPLES", 20)
+    monkeypatch.setattr(suite, "GB_TARGET_BYTES", 1 << 20)
+    fixture = tmp_path / "gb" / "1.vcf.gz"
+    monkeypatch.setenv("TPU_LD_GB_FIXTURE", str(fixture))
+    threads = sorted({1, 2, os.cpu_count() or 1})
+    first = suite.main(["--configs", "0gb", "--device", "cpu"])
+    made = fixture.stat().st_mtime_ns
+    with open(str(fixture) + ".meta.json") as fh:
+        meta = json.load(fh)
+    again = suite.main(["--configs", "0gb", "--device", "cpu"])
+    assert fixture.stat().st_mtime_ns == made
+    for rows in (first, again):
+        assert [r["n_threads"] for r in rows] == threads
+        assert [r["run_idx"] for r in rows] == list(range(len(threads)))
+        for r in rows:
+            assert r["config"] == "0gb_ingest"
+            assert r["variants"] == meta["v"] > 0
+            assert r["peak_rss_mb"] > 0 and r["packed_mb"] > 0
+            assert r["mb_per_s"] > 0 and r["seconds"] > 0
 
 
 def test_suite_tool_configs_at_a_small_size(monkeypatch, tmp_path):

@@ -94,6 +94,106 @@ def test_the_walk_covers_the_triangle_and_the_entry_points():
     } <= set(_port_modules())
 
 
+def test_the_walk_covers_the_measurement_scripts_verifier_and_gallery():
+    """... and the measurement scripts, the verifier and the gallery."""
+    assert {
+        "ld_tools_tpu_torch.bench.scaling",
+        "ld_tools_tpu_torch.bench.scaling_model",
+        "ld_tools_tpu_torch.bench.smoke", "ld_tools_tpu_torch.scripts",
+        "ld_tools_tpu_torch.scripts.verify_vs_reference",
+        "ld_tools_tpu_torch.scripts.make_gallery",
+    } <= set(_port_modules())
+
+
+NEW_ENTRY_MODULES = [
+    "ld_tools_tpu_torch.bench.scaling", "ld_tools_tpu_torch.bench.scaling_model",
+    "ld_tools_tpu_torch.bench.smoke", "ld_tools_tpu_torch.bench.suite",
+    "ld_tools_tpu_torch.scripts.verify_vs_reference",
+    "ld_tools_tpu_torch.scripts.make_gallery",
+]
+
+
+def test_measurement_scripts_import_nothing_of_jax_or_the_scripts_package():
+    """The new entry points, imported in a fresh process, pull in no JAX,
+    nothing of ld_tools_tpu and nothing of the top-level ``scripts``
+    package (the JAX package's scripts)."""
+    code = (
+        "import importlib, sys\n"
+        f"for m in {NEW_ENTRY_MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(k for k in sys.modules\n"
+        "             if k.split('.')[0] in ('jax', 'ld_tools_tpu', 'scripts'))\n"
+        "assert not bad, bad\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         env=dict(os.environ, PYTHONPATH=REPO),
+                         capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+
+
+def test_sources_import_nothing_of_the_top_level_scripts():
+    for root, dirs, files in os.walk(PORT_DIR):
+        if "_build" in dirs:
+            dirs.remove("_build")
+        for name in files:
+            if not name.endswith(".py"):
+                continue
+            path = os.path.join(root, name)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    mods = [a.name for a in node.names]
+                elif isinstance(node, ast.ImportFrom) and not node.level:
+                    mods = [node.module or ""]
+                else:
+                    continue
+                assert all(m.split(".")[0] != "scripts" for m in mods), (
+                    path, mods)
+
+
+def _stand_in_reference(tmp_path):
+    ref = tmp_path / "reference"
+    (ref / "backend").mkdir(parents=True)
+    (ref / "backend" / "calc_ld.py").write_text(
+        "from tests.oracle import oracle_ld as calc_ld\n")
+    return str(ref)
+
+
+@pytest.mark.parametrize("entry", [
+    "scaling_model", "scaling", "smoke", "suite_wg", "suite_0gb", "verify",
+    "gallery",
+])
+def test_new_entry_points_default_to_cuda_and_raise_without_a_card(
+        entry, tmp_path, monkeypatch):
+    """Each measurement script, the verifier and the gallery run on the
+    card unless asked for the CPU, and raise without one before any work
+    (nothing is generated, prepared or written)."""
+    from ld_tools_tpu_torch.bench import scaling, scaling_model, smoke, suite
+    from ld_tools_tpu_torch.scripts import make_gallery, verify_vs_reference
+
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setenv("TPU_LD_WG_DIR", str(tmp_path / "wg"))
+    monkeypatch.setenv("TPU_LD_GB_FIXTURE", str(tmp_path / "gb" / "1.vcf.gz"))
+    reference = _stand_in_reference(tmp_path)
+    calls = {
+        "scaling_model": lambda: scaling_model.main([]),
+        "scaling": lambda: scaling.main([]),
+        "smoke": lambda: smoke.main(["--out", str(tmp_path / "s.json")]),
+        "suite_wg": lambda: suite.main(["--configs", "wg"]),
+        "suite_0gb": lambda: suite.main(["--configs", "0gb"]),
+        "verify": lambda: verify_vs_reference.main(
+            ["--reference", reference]),
+        "gallery": lambda: make_gallery.main(
+            ["--out", str(tmp_path / "gallery")]),
+    }
+    before = sorted(os.listdir(tmp_path))
+    _no_card(monkeypatch)
+    with pytest.raises(RuntimeError, match="no CUDA card"):
+        calls[entry]()
+    assert sorted(os.listdir(tmp_path)) == before
+
+
 def test_sources_import_no_jax_and_nothing_of_the_jax_package():
     for root, dirs, files in os.walk(PORT_DIR):
         if "_build" in dirs:  # build outputs, not sources of the port
