@@ -64,27 +64,37 @@ Phases, each of which exits non-zero on any failure:
             the card; every row of the 500-row table and 200 sampled rows
             of each larger one must equal an f64 recount from the store;
    sharded  K7 (``ld_band_count_sharded``: K5's or K6's kernel once per
-            shard, each shard on its own stream) over [cuda:0] * 4 against
-            its plain version on the ragged rows (both forms, with and
-            without the window), against the unsharded K5 on the chr21
-            blocks (also over ``scan_mesh()``) and K6 on the 1.1 M store's
-            -w 1000000 blocks, bit for bit, timed beside them; the scan
-            over [cuda:0] * 4 in both layouts against the one-device scan
-            (hits, values, sentinels; only K7 and K3/K4 launched); the
-            ld_scan tool as two processes of a gloo group on the card
-            (``-d 2 -k``: K7 and K3 only), then again resuming every batch
-            (no launch), rank 0's TSV byte-identical to the single-process
-            TSV both times; and the replicated, ring and trapezoid sweeps
-            at 10,240 x 5,008 over [cuda:0] * 4, each equal to the
-            one-device sweep, its r^2 within 2e-5 of the f64 finish at
-            4,000 sampled pairs and of K1's exact r^2; then the ring and
-            the trapezoid across two gloo processes on the card (this
-            script's ``--sweep-worker`` role; local shards [cuda:0,
-            cuda:0] in each, four over the group), each process's row
-            bands equal to its one-device sweep with torch.equal;
+            shard, each shard on its own stream) over the explicit shard
+            list [cuda:0] * 4 against its plain version on the ragged rows
+            (both forms, with and without the window), against the
+            unsharded K5 on the chr21 blocks (also over ``scan_mesh()``,
+            which is [cuda:0] on one card, as ``scan_mesh(4)`` is) and K6
+            on the 1.1 M store's -w 1000000 blocks, bit for bit, timed
+            beside them; the scan over [cuda:0] * 4 in both layouts
+            against the one-device scan (hits, values, sentinels; only K7
+            and K3/K4 launched); the ld_scan tool with ``-d 4`` on one
+            card, which runs the one-device scan (K5 and K3, no K7) as
+            the JAX tool does on one chip, beside ``-d 1`` and the tool
+            over the explicit list [cuda:0] * 4 (K7), each TSV
+            byte-identical to the single-process TSV; the ld_scan tool as two
+            processes of a gloo group on the card (``-d 2 -k``: one card
+            each, so the one-device scan, K5 and K3 only), then again
+            resuming every batch (no launch), rank 0's TSV
+            byte-identical to the single-process TSV both times; and the
+            replicated, ring and trapezoid sweeps at 10,240 x 5,008 over
+            [cuda:0] * 4, each equal to the one-device sweep, its r^2
+            within 2e-5 of the f64 finish at 4,000 sampled pairs and of
+            K1's exact r^2; then the ring and the trapezoid across two
+            gloo processes on the card (this script's ``--sweep-worker``
+            role; ``make_mesh(devices=[cuda:0, cuda:0])`` in each, four
+            shards over the group), each process's row bands equal to its
+            one-device sweep with torch.equal;
    entry    the entry points of ``ld_tools_tpu_torch.entry``:
-            entry()'s LD step on the card within 1e-6 of the CPU's, and
-            dryrun_multichip(4) over [cuda:0] * 4;
+            entry()'s LD step on the card within 1e-6 of the CPU's;
+            with fewer than 4 cards, make_mesh(4) and dryrun_multichip(4)
+            must raise ValueError (as JAX's make_mesh raises and its dry
+            run asserts 4 devices); then dryrun_multichip(4,
+            devices=[cuda:0] * 4), four shards on one card;
    mixed    ld_scan on a chrX store of the chr21 row count (102,400
             variants x 2,504 samples, males haploid outside the PAR bands:
             three ploidy segments) with -w 1000000 in both resident
@@ -121,6 +131,7 @@ Phases, each of which exits non-zero on any failure:
             (``bench.scaling_model``: dispatch, H2D, D2H and K5's rate,
             each finite and positive), the sharded-scan scaling at chr21
             scale (``bench.scaling``: 1, 2, 4 and 8 shards on the card,
+            each row's ``cards`` the distinct cards under its shards,
             equal hits; K5 and K3, K7 past one shard) and suite config wg
             at 2 chromosomes and 0.5 GiB of BGZF (2,504 samples: prep, the
             re-prep a no-op, the ld_scan tool with K5 and K3; each
@@ -1495,8 +1506,9 @@ def phase_sharded(work, stores, gp, pos, results):
     """K7 over [cuda:0] * 4 against its plain version (ragged rows, both
     forms) and against the unsharded K5 (chr21) and K6 (1.1 M, -w
     1000000), timed beside them; the sharded scan in both layouts against
-    the one-device scan; the cooperative tool run by two processes on the
-    card, and its resume, against the single-process TSV; the three
+    the one-device scan; the tool with -d 1, -d 4 and [cuda:0] * 4
+    (:func:`tool_d_runs`); the cooperative tool run by two processes on
+    the card, and its resume, against the single-process TSV; the three
     all-pairs sweeps against their one-device run, the f64 finish and
     K1."""
     import torch
@@ -1551,8 +1563,15 @@ def phase_sharded(work, stores, gp, pos, results):
         return lk.ld_band_count_sharded(m, *copies, *params, packed=False,
                                         use_dist=False, **kw)
 
+    # scan_mesh(n) takes at most the cards there are (JAX's
+    # local_devices()[:n]): on one card it is [cuda:0], whatever n
+    local = ls.scan_mesh()
+    check(ls.scan_mesh(SHARDS) == local[:SHARDS]
+          and (torch.cuda.device_count() > 1 or local == [dev]),
+          f"scan_mesh({SHARDS}) is {ls.scan_mesh(SHARDS)}, scan_mesh() "
+          f"{local} on {torch.cuda.device_count()} card(s)")
     want = k5()
-    for m in (mesh, ls.scan_mesh()):
+    for m in (mesh, local):
         copies = tuple(lk.shard_replicas(t, m) for t in rows)
         check(torch.equal(k7(m, copies), want),
               f"K7 over {len(m)} shard(s) differs from K5 (chr21)")
@@ -1647,9 +1666,11 @@ def phase_sharded(work, stores, gp, pos, results):
                    packed_shape=f"{len(bif)} blocks, 1.1 M variants packed "
                                 "(W=640 bytes), -w 1000000"))
 
-    # the cooperative tool on the card, then its resume
     with open(stores["chr21_tsv"], "rb") as fh:
         solo = fh.read()
+    summary["tool_d"] = tool_d_runs(work, stores["chr21"], solo)
+
+    # the cooperative tool on the card, then its resume
     ckpt = os.path.join(work, "coop_ckpt")
     for tag in ("cooperative", "resume"):
         out = os.path.join(work, f"coop_{tag}")
@@ -1668,15 +1689,18 @@ def phase_sharded(work, stores, gp, pos, results):
             phases.append(dict(kv.split("=", 1) for kv in
                                line.split("scan phases: ", 1)[1].split()))
             if tag == "cooperative":
+                # -d 2 under a launcher: each process has its one card,
+                # so the one-device scan (JAX's with one chip a process)
                 _only_launched(f"cooperative rank {rank}", launches,
-                               {"ld_band_count_sharded", "ld_band_sweep_blocks"})
+                               {"ld_band_count", "ld_band_sweep_blocks"})
             else:
                 check(not any(launches.values()) and "resumed batch" in err,
                       f"resume rank {rank} launched {launches}")
         summary[tag] = dict(seconds=secs, launches=[r[1] for r in ranks],
                             phases=phases)
-        log(f"{tag} ld_scan (2 processes, gloo, -d 2 -k, one card): "
-            f"{secs:.2f}s; rank 0's TSV is the single-process TSV")
+        log(f"{tag} ld_scan (2 processes, gloo, -d 2 -k, one card each, "
+            f"the one-device scan): {secs:.2f}s; rank 0's TSV is the "
+            "single-process TSV")
 
     # the all-pairs sweeps against their one-device run
     G = triangle_host()
@@ -1731,10 +1755,60 @@ def phase_sharded(work, stores, gp, pos, results):
     return summary
 
 
+def tool_d_runs(work, data, solo):
+    """The ld_scan tool on the chr21 store with ``-d 1``, ``-d 4`` and the
+    explicit list [cuda:0] * 4 (``ScanConfig.mesh`` replaced: the tool's
+    CLI takes a count).  ``-d 4`` takes at most the cards there are: on
+    one card the one-device scan, K5 and K3 with no K7, as the JAX tool
+    on one chip; the list runs K7's four shards queued on one card.
+    Every TSV must be the single-process TSV."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_stream as ls
+    from ld_tools_tpu_torch.tools.scan import ScanConfig
+
+    listed = [torch.device("cuda", 0)] * SHARDS
+    tags = {"-d 1": 1, f"-d {SHARDS}": len(ls.scan_mesh(SHARDS)),
+            f"[cuda:0] * {SHARDS}": SHARDS}
+    runs = {}
+    mesh_of = ScanConfig.mesh
+    for k, tag in enumerate(tags):
+        out = os.path.join(work, f"out_d{k}")
+        if tag.startswith("["):
+            ScanConfig.mesh = lambda self: listed
+        try:
+            report, secs, launches = _run_scan(
+                data, out, ("-d", tag[3:]) if tag.startswith("-d") else ())
+        finally:
+            ScanConfig.mesh = mesh_of
+        _log_scan(tag, report, secs, launches)
+        st = report.stats
+        check(st["shards"] == tags[tag], f"ld_scan {tag} on "
+              f"{torch.cuda.device_count()} card(s) ran {st['shards']} "
+              "shard(s)")
+        count = ("ld_band_count_sharded" if tags[tag] > 1
+                 else "ld_band_count_kernel")
+        _only_launched(f"ld_scan {tag}", launches, {count, K3})
+        with open(report.path, "rb") as fh:
+            check(fh.read() == solo, f"the ld_scan {tag} TSV differs from "
+                  "the single-process TSV")
+        shutil.rmtree(out, ignore_errors=True)
+        runs[tag] = dict(seconds=secs, count_s=st["count_s"],
+                         fetch_s=st["fetch_s"], write_s=st["write_s"],
+                         shards=st["shards"], resident_hit=st["resident_hit"],
+                         launches={n: v for n, v in launches.items() if v})
+    log(f"ld_scan on {torch.cuda.device_count()} card(s): " + "; ".join(
+        f"{tag} {r['shards']:.0f} shard(s), launches {r['launches']}, "
+        f"count_s {r['count_s']:.4f}, wall {r['seconds']:.2f} s"
+        for tag, r in runs.items()) + "; every TSV the single-process TSV")
+    return runs
+
+
 def sweep_worker():
     """One rank of the sweeps across processes (``chip_smoke.py
     --sweep-worker``, started by :func:`sweeps_two_processes`): two local
-    shards on this process's card, four over the gloo group; the ring's
+    shards on this process's card (``make_mesh(devices=[own, own])``),
+    four over the gloo group; the ring's
     and the trapezoid's bands on the headline's rows against this
     process's one-device sweep, with torch.equal.  Prints one JSON line
     and the launch report."""
@@ -1745,13 +1819,14 @@ def sweep_worker():
                                              all_pairs_trapezoid, make_mesh)
     from ld_tools_tpu_torch.parallel.sweep import ProcessMesh
     from ld_tools_tpu_torch.utils.distributed import (initialize_if_needed,
+                                                      local_device,
                                                       process_index)
 
     check(initialize_if_needed(), "the sweep worker joined no group")
-    mesh = make_mesh(2, "cuda")
+    own = local_device("cuda")
+    mesh = make_mesh(devices=[own, own])  # two shards on one card: asked
     check(isinstance(mesh, ProcessMesh) and len(mesh) == 4,
           f"the mesh over two processes is {mesh}")
-    own = torch.device(mesh.devices[mesh.owners.index(mesh.rank)])
     G = triangle_host()
     out = dict(rank=process_index(), owners=list(mesh.owners),
                devices=list(mesh.devices), sweeps={})
@@ -1805,9 +1880,11 @@ def sweeps_two_processes(v):
 
 
 def phase_entry():
-    """The entry points of ld_tools_tpu_torch.entry on the card: entry()'s LD step against the
-    same step on the CPU (r^2 and D' within 1e-6), and
-    dryrun_multichip(4) over make_mesh(4), [cuda:0] * 4 on one card."""
+    """The entry points of ld_tools_tpu_torch.entry on the card: entry()'s
+    LD step against the same step on the CPU (r^2 and D' within 1e-6);
+    with fewer than 4 cards, make_mesh(4) and dryrun_multichip(4) must
+    raise ValueError (JAX's make_mesh raises, its dry run asserts 4
+    devices); then dryrun_multichip(4, devices=[cuda:0] * 4)."""
     import torch
 
     from ld_tools_tpu_torch.entry import dryrun_multichip, entry
@@ -1822,16 +1899,30 @@ def phase_entry():
     errs = [float((g.cpu() - w).abs().max()) for g, w in zip(got, want)]
     check(max(errs) <= 1e-6, f"entry(): the card's r^2 / D' differ from the "
           f"CPU's by {errs}")
-    mesh = make_mesh(4)
-    check(len(mesh) == 4 and len(set(mesh)) == torch.cuda.device_count(),
-          f"make_mesh(4) on {torch.cuda.device_count()} card(s) is {mesh}")
+    cards = torch.cuda.device_count()
+    raised = []
+    if cards < SHARDS:
+        for name, call in (("make_mesh", make_mesh),
+                           ("dryrun_multichip", dryrun_multichip)):
+            try:
+                call(SHARDS)
+            except ValueError as exc:
+                raised.append(f"{name}({SHARDS}): {exc}")
+            else:
+                check(False, f"{name}({SHARDS}) on {cards} card(s) did not "
+                      "raise")
+    devices = [torch.device("cuda", 0)] * SHARDS
+    mesh = make_mesh(devices=devices)
+    check(mesh == devices, f"make_mesh(devices={devices}) is {mesh}")
     t0 = time.perf_counter()
-    dryrun_multichip(4)
+    dryrun_multichip(SHARDS, devices=devices)
     secs = time.perf_counter() - t0
     log(f"entry: ld_step on 1,024 x 5,120 on the card, r^2 / D' within "
-        f"{errs[0]:.3g} / {errs[1]:.3g} of the CPU's; dryrun_multichip(4) "
-        f"over {[str(d) for d in mesh]} passed in {secs:.2f}s")
-    return dict(max_abs_err=errs, dryrun_s=secs)
+        f"{errs[0]:.3g} / {errs[1]:.3g} of the CPU's; on {cards} card(s) "
+        + ("; ".join(raised) or "nothing raised") + f"; dryrun_multichip("
+        f"{SHARDS}, devices=[cuda:0] * {SHARDS}) passed in {secs:.2f}s, "
+        f"its {SHARDS} shards sharing one card")
+    return dict(max_abs_err=errs, raised=raised, dryrun_s=secs)
 
 
 # ---- the engine's tools: ld_area and the mixed-ploidy scan ----------------
@@ -2600,10 +2691,13 @@ def phase_measure(work):
     """The measurement scripts, as subprocesses: the kernel smoke artifact
     (17 configurations, every one ok, launches from K1-K6 only), the
     scaling model (its measured block finite and positive; K5 launched),
-    the sharded-scan scaling at its card defaults (four mesh sizes, equal
-    hits; K5 and K3, K7 past one shard) and suite config wg at WG_SCALE
-    (its rows, hits, the re-prep a no-op, K5 and K3 launched, each
-    chromosome's TSV against an f64 recount).  Returns their records."""
+    the sharded-scan scaling at its card defaults (four mesh sizes, each
+    row's distinct cards, equal hits; K5 and K3, K7 past one shard) and
+    suite config wg at WG_SCALE (its rows, hits, the re-prep a no-op, K5
+    and K3 launched, each chromosome's TSV against an f64 recount).
+    Returns their records."""
+    import torch
+
     from ld_tools_tpu_torch.bench.smoke import NAMES
 
     out = {}
@@ -2661,12 +2755,17 @@ def phase_measure(work):
           f"bench.scaling rows {rows}")
     check(rows[0]["hits"] > 0 and len({r["hits"] for r in rows}) == 1,
           f"bench.scaling hits {[r['hits'] for r in rows]}")
+    cards = torch.cuda.device_count()
     for r in rows:
         count = "ld_band_count" if r["devices"] == 1 else "ld_band_count_sharded"
         check(r["launches"].get(count, 0) > 0
               and r["launches"].get("ld_band_sweep_blocks", 0) > 0,
               f"bench.scaling at {r['devices']} shards launched "
               f"{r['launches']}")
+        # n shards on the first n cards, else n on the first card
+        check(r["cards"] == (r["devices"] if r["devices"] <= cards else 1),
+              f"bench.scaling at {r['devices']} shards on {cards} card(s) "
+              f"says cards {r['cards']}")
         log(f"  scaling: {json.dumps(r)}")
     out["scaling"] = rows
 

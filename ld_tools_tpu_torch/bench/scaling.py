@@ -5,24 +5,26 @@ scripts/bench_scaling.py.
         [--doc PATH] [--device cuda|cpu]
 
 Times the tile-sharded streamed scan (``ops/ld_stream.
-stream_threshold_scan`` over ``scan_mesh(n)``: the count pass K7, i.e.
-K5 once per shard, then K3 on the hit blocks; one shard is the plain
-call, K5 then K3) and the ring sweep (``parallel/sweep.all_pairs_ring``
-over ``make_mesh(n)`` on the first min(V, 2,048) rows), each after one
-warm call, the best of 3, and reports pairs/s and the efficiency against
-the one-shard run.  The hits must be the same at every mesh size: the
-run raises where they differ.
+stream_threshold_scan`` over n shards: the count pass K7, i.e. K5 once
+per shard, then K3 on the hit blocks; one shard is the plain call, K5
+then K3) and the ring sweep (``parallel/sweep.all_pairs_ring`` over the
+same shards on the first min(V, 2,048) rows), each after one warm call,
+the best of 3, and reports pairs/s and the efficiency against the
+one-shard run.  The hits must be the same at every mesh size: the run
+raises where they differ.
 
-The shards are this process's local cards, repeated past their count:
-on one card ``scan_mesh(n)`` is ``[cuda:0] * n``, so the shards queue on
-that card and the table shows the sharded path's overhead, not scaling
-across cards.  On the card the default workload is the chr21 scale,
-102,400 variants x 5,008 haplotypes; on the CPU (``--device cpu``, the
-plain versions) the JAX script's 4,096 x 512.
+The n shards are the first n local cards (``scan_mesh(n)``) where there
+are n, else the explicit list ``[cuda:0] * n``: n shards that queue on
+one card.  Each row says both: ``devices`` the shard count, as in the
+JAX script's rows, and ``cards`` the distinct devices under them, so a
+row whose cards are fewer than its shards shows the sharded path's
+overhead, not scaling across cards.  On the card the default workload
+is the chr21 scale, 102,400 variants x 5,008 haplotypes; on the CPU
+(``--device cpu``, the plain versions) the JAX script's 4,096 x 512.
 
-Writes one JSON line per mesh size (the JAX script's keys and the kernel
-launches of that size), then a markdown table; ``--doc PATH`` also
-writes the table to PATH.
+Writes one JSON line per mesh size (the JAX script's keys, ``cards`` and
+the kernel launches of that size), then a markdown table; ``--doc PATH``
+also writes the table to PATH.
 """
 
 from __future__ import annotations
@@ -62,15 +64,25 @@ def _workload(v=4096, h=512, seed=0):
     return G, pos
 
 
-def bench_scan(G, pos, n_devices, device, reps=3):
-    """(best seconds, hits) of the scan over ``n_devices`` shards."""
-    from ld_tools_tpu_torch.ops.ld_stream import scan_mesh, stream_threshold_scan
+def shard_list(n: int, device) -> list:
+    """n shards: the first n local cards (``scan_mesh(n)``; on the CPU n
+    CPU shards), or the first card n times where there are fewer."""
+    from ld_tools_tpu_torch.ops.ld_stream import scan_mesh
+
+    mesh = scan_mesh(n, device)
+    return mesh if len(mesh) == n else mesh[:1] * n
+
+
+def bench_scan(G, pos, mesh, device, reps=3):
+    """(best seconds, hits) of the scan over the shard list ``mesh`` (one
+    shard: the plain one-device call)."""
+    from ld_tools_tpu_torch.ops.ld_stream import stream_threshold_scan
 
     kw = dict(
         pos=pos, measure="r_square", thres=0.8, band=512, chunk=1024,
         exact=False, device=device,
     )
-    mesh = scan_mesh(n_devices, device) if n_devices > 1 else None
+    mesh = mesh if len(mesh) > 1 else None
     stream_threshold_scan(G, mesh=mesh, **kw)  # first-call costs
     best = float("inf")
     for _ in range(reps):
@@ -80,11 +92,11 @@ def bench_scan(G, pos, n_devices, device, reps=3):
     return best, hits
 
 
-def bench_ring(G, n_devices, device, reps=3):
-    from ld_tools_tpu_torch.parallel.sweep import all_pairs_ring, make_mesh
+def bench_ring(G, mesh, device, reps=3):
+    """Best seconds of the ring sweep over the shard list ``mesh``."""
+    from ld_tools_tpu_torch.parallel.sweep import all_pairs_ring
 
     dev = resolve_device(device)
-    mesh = make_mesh(n_devices, device)
     all_pairs_ring(G, mesh=mesh)
     common.sync(dev)
     best = float("inf")
@@ -110,9 +122,10 @@ def run(v, h, device) -> list:
     rows = []
     base_scan = base_ring = base_keys = None
     for n in MESH_SIZES:
+        mesh = shard_list(n, device)
         before = common.launch_counts()
-        t_scan, hits = bench_scan(G, pos, n, device)
-        t_ring = bench_ring(G[: min(v, RING_ROWS)], n, device)
+        t_scan, hits = bench_scan(G, pos, mesh, device)
+        t_ring = bench_ring(G[: min(v, RING_ROWS)], mesh, device)
         launches = common.launches_since(before)
         keys = hit_keys(hits, v)
         if n == 1:
@@ -123,6 +136,7 @@ def run(v, h, device) -> list:
                 f"one-shard scan {len(base_keys)}: the hit sets differ")
         row = {
             "devices": n,
+            "cards": len(set(mesh)),
             "scan_s": round(t_scan, 3),
             "scan_gpairs_per_s": round(pairs / t_scan / 1e9, 3),
             "scan_speedup": round(base_scan / t_scan, 2),
@@ -139,11 +153,15 @@ def run(v, h, device) -> list:
 
 def table(rows, v, h, dev) -> str:
     if dev.type == "cuda":
-        where = (f"{common.describe_device(dev)}. scan_mesh(n) lists the "
-                 f"{torch.cuda.device_count()} local card(s), repeated past "
-                 "their count: shards on one card queue on it, and the table "
-                 "then shows the sharded path's overhead, not scaling across "
-                 "cards.")
+        shared = [r["devices"] for r in rows if r["cards"] < r["devices"]]
+        where = (f"{common.describe_device(dev)}, "
+                 f"{torch.cuda.device_count()} local card(s). The n shards "
+                 "are the first n cards where there are n.")
+        if shared:
+            where += (f" At {', '.join(map(str, shared))} shards there are "
+                      "fewer cards, so the shards are the first card n "
+                      "times: they queue on it, and those rows show the "
+                      "sharded path's overhead, not scaling across cards.")
     else:
         where = ("The shards are the CPU repeated (the plain PyTorch "
                  "versions): the table shows the sharded path's overhead, "
@@ -157,13 +175,14 @@ def table(rows, v, h, dev) -> str:
         "",
         where,
         "",
-        "| devices | scan s | scan Gpairs/s | scan speedup | scan eff | "
-        "ring s | ring speedup |",
-        "|---|---|---|---|---|---|---|",
+        "| shards | cards | scan s | scan Gpairs/s | scan speedup | "
+        "scan eff | ring s | ring speedup |",
+        "|---|---|---|---|---|---|---|---|",
     ]
     for r in rows:
         lines.append(
-            f"| {r['devices']} | {r['scan_s']} | {r['scan_gpairs_per_s']} "
+            f"| {r['devices']} | {r['cards']} | {r['scan_s']} "
+            f"| {r['scan_gpairs_per_s']} "
             f"| {r['scan_speedup']}x | {r['scan_efficiency']} "
             f"| {r['ring_s']} | {r['ring_speedup']}x |"
         )

@@ -30,8 +30,8 @@ License: MIT
     "max_dist": "Maximum pair distance in bp (default: unlimited)",
     "checkpoint": "Folder for per-batch scan checkpoints (resume after a kill)",
     "devices": "Shard scan tiles over this many local devices"
-               " ('all' = every device; default: 1; more shards than"
-               " cards share the cards)",
+               " ('all' = every device; default: 1; at most the cards"
+               " there are; -E torch: N CPU shards)",
     "engine": "{cuda, torch} Count kernels (cuda: hand-written kernels"
               " on the GPU; torch: their plain PyTorch versions on the CPU)",
 }
@@ -58,8 +58,8 @@ TEXT_RU = {
     "max_dist": "Максимальная дистанция пары в bp (по умолчанию: без лимита)",
     "checkpoint": "Папка для почанковых чекпоинтов скана (возобновление после сбоя)",
     "devices": "Шардировать тайлы скана на столько локальных устройств"
-               " ('all' = все; по умолчанию: 1; шардов больше, чем карт,"
-               " делят карты)",
+               " ('all' = все; по умолчанию: 1; не больше, чем есть карт;"
+               " -E torch: N шардов на CPU)",
     "engine": "{cuda, torch} Ядра подсчёта (cuda: написанные вручную"
               " ядра на GPU; torch: их простые версии PyTorch на CPU)",
 }

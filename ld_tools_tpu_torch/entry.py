@@ -5,7 +5,8 @@ sweeps and scan.
     from ld_tools_tpu_torch.entry import entry, dryrun_multichip
     fn, args = entry()          # on the card; entry("cpu") on the CPU
     r2, dp = fn(*args)
-    dryrun_multichip(4)         # four shards, repeating the card as needed
+    dryrun_multichip(4)         # four cards; raises where fewer exist
+    dryrun_multichip(4, devices=["cuda:0"] * 4)  # four shards on one card
 """
 
 from __future__ import annotations
@@ -35,13 +36,15 @@ def entry(device="cuda"):
     return ld_step, (torch.from_numpy(G).to(dev),)
 
 
-def dryrun_multichip(n_devices: int, device="cuda") -> None:
-    """Run the three all-pairs sweeps over ``make_mesh(n_devices, device)``
-    (a device repeats past the count of local ones) on a ragged
-    (16 n + 5) x 128 matrix, check their shapes, finiteness and agreement,
-    then hold the sharded threshold scan against the one-device scan, hit
+def dryrun_multichip(n_devices: int, device="cuda", devices=None) -> None:
+    """Run the three all-pairs sweeps over ``make_mesh(n_devices, device,
+    devices=devices)`` (ValueError where fewer than ``n_devices`` shards
+    exist, as JAX asserts n devices; ``devices`` is an explicit shard list,
+    in which a card may repeat) on a ragged (16 n + 5) x 128 matrix, check
+    their shapes, finiteness and agreement, then hold the sharded
+    threshold scan over the same shards against the one-device scan, hit
     for hit.  Raises AssertionError on any disagreement."""
-    from ld_tools_tpu_torch.ops.ld_stream import scan_mesh, stream_threshold_scan
+    from ld_tools_tpu_torch.ops.ld_stream import stream_threshold_scan
     from ld_tools_tpu_torch.parallel import (
         all_pairs_replicated,
         all_pairs_ring,
@@ -49,9 +52,7 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         make_mesh,
     )
 
-    mesh = make_mesh(n_devices, device)
-    if len(mesh) != n_devices:
-        raise AssertionError(f"need {n_devices} shards, have {len(mesh)}")
+    mesh = make_mesh(n_devices, device, devices=devices)
     rng = np.random.default_rng(1)
     v, h = n_devices * 16 + 5, 128  # ragged V exercises padding
     G = (rng.random((v, h)) < rng.uniform(0.1, 0.9, (v, 1))).astype(np.int8)
@@ -72,11 +73,11 @@ def dryrun_multichip(n_devices: int, device="cuda") -> None:
         raise AssertionError("the trapezoid sweep differs from the "
                              "replicated one")
 
-    # the tile-sharded streamed threshold scan over the same shard count,
+    # the tile-sharded streamed threshold scan over the same shards,
     # exact host refinish from the integer counts
     kw = dict(measure="r_square", thres=0.5, band=16, chunk=16, exact=True,
               device=device)
-    hits = stream_threshold_scan(G, mesh=scan_mesh(n_devices, device), **kw)
+    hits = stream_threshold_scan(G, mesh=mesh, **kw)
     ref = stream_threshold_scan(G, **kw)
     if not (np.array_equal(hits.i, ref.i) and np.array_equal(hits.j, ref.j)
             and np.array_equal(hits.r_square, ref.r_square)):

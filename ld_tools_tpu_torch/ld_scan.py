@@ -5,7 +5,8 @@ scan on the GPU.
 
 ``-E cuda`` (the default) runs the hand-written kernels on the card;
 ``-E torch`` runs their plain PyTorch versions on the CPU.  ``-d N``
-shards each scan over N local devices, ``-k <dir>`` keeps per-batch
+shards each scan over the first N local cards (one card: the one-device
+scan; ``-E torch``: N CPU shards), ``-k <dir>`` keeps per-batch
 checkpoints to resume from, and under ``torchrun`` (gloo) the processes
 scan one chromosome together:
 

@@ -313,24 +313,24 @@ def _scan_devices(mesh, device) -> list:
 def scan_mesh(n_devices=None, device="cuda") -> list:
     """The shard list of this process's local devices for a sharded scan
     (ld_stream.scan_mesh): every visible card, or under a multi-process
-    launcher this process's card (``cuda:(LOCAL_RANK % device_count)``);
-    on the CPU, the CPU.  ``n_devices`` takes the first n of them, as in
-    JAX, and where n exceeds them the devices repeat: ``scan_mesh(4)`` on
-    one card is four shards on it.  Local on purpose, as in JAX: each
-    process shards its own tiles over its own cards and the hits of a
-    cooperative scan meet on the host."""
+    launcher this process's card (``cuda:(LOCAL_RANK % device_count)``).
+    ``n_devices`` takes the first n of them, as JAX's
+    ``local_devices()[:n]``: ``scan_mesh(4)`` on one card is that one
+    card, and a caller that wants n shards on one card passes
+    ``[cuda:0] * n`` itself.  On the CPU it is n CPU shards (default 1),
+    the counterpart of the n virtual CPU devices JAX's tests run on.
+    Local on purpose, as in JAX: each process shards its own tiles over
+    its own cards and the hits of a cooperative scan meet on the host."""
     dev = resolve_device(device)
-    own = local_device(dev)
     if dev.type == "cpu":
-        local = [dev]
-    elif own is not None:
+        return [dev] * (1 if n_devices is None else int(n_devices))
+    own = local_device(dev)
+    if own is not None:
         local = [own]
     else:
         local = [torch.device("cuda", k)
                  for k in range(torch.cuda.device_count())]
-    if n_devices is None:
-        return local
-    return [local[k % len(local)] for k in range(int(n_devices))]
+    return local if n_devices is None else local[:int(n_devices)]
 
 
 def _allgather_hits(arrs: dict, want) -> dict:

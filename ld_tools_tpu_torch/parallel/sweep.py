@@ -3,8 +3,8 @@ counterpart of ld_tools_tpu/parallel/sweep.py.
 
 The variant axis of one chromosome splits into row bands, one shard per
 entry of a mesh (``make_mesh``, or any sequence of local devices; a
-device may repeat, so ``[cuda:0] * 4`` is four shards on one card and
-``[cpu] * 4`` four on the CPU):
+device may repeat in a list the caller passes, so ``[cuda:0] * 4`` is
+four shards on one card and ``[cpu] * 4`` four on the CPU):
 
 - ``all_pairs_replicated``: every distinct device holds all of G; shard
   k computes band k against every column, with no traffic;
@@ -18,10 +18,10 @@ device may repeat, so ``[cuda:0] * 4`` is four shards on one card and
 
 Across processes: after ``utils.distributed.initialize_if_needed()``,
 ``make_mesh()`` is a :class:`ProcessMesh` of every process's local shards
-in rank order (JAX's global mesh after ``jax.distributed``).  A block
-moves to the next shard with ``.to`` where both shards are in one
-process, and as a host copy over the group's gloo ``send``/``recv`` where
-they are not.
+in rank order (JAX's global mesh after ``jax.distributed``), and
+``make_mesh(n)`` its first n shards in all.  A block moves to the next
+shard with ``.to`` where both shards are in one process, and as a host
+copy over the group's gloo ``send``/``recv`` where they are not.
 
 Each band-by-block product is ``ops/ld_math``'s int8 count and f32
 epilogue, the same as the one-device sweep's, so every shard layout gives
@@ -66,24 +66,52 @@ class ProcessMesh:
         return len(self.owners)
 
 
-def make_mesh(n_devices=None, device="cuda"):
-    """This process's shards, ``ld_stream.scan_mesh``'s rule: every
-    visible card (under a launcher this process's card), the first
-    ``n_devices`` of them repeated past their count, or on the CPU
-    ``n_devices`` (default 1) shards.  Under an initialised
+def make_mesh(n_devices=None, device="cuda", devices=None):
+    """The shards of a sweep (JAX's ``make_mesh``): the first
+    ``n_devices`` shards, or all of them, raising ValueError where fewer
+    than ``n_devices`` exist, since silently truncating would record
+    "n-device" results that ran on fewer devices.
+
+    This process's shards are ``devices`` where given: an explicit list,
+    the one place a device repeats on purpose (``[cuda:0] * 4`` is four
+    shards on one card).  Otherwise they are ``scan_mesh(None, device)``:
+    every visible card, or under a launcher this process's card; alone on
+    the CPU, ``n_devices`` CPU shards (default 1).  Under an initialised
     torch.distributed group of more than one process, a
-    :class:`ProcessMesh` of every process's shards in rank order."""
-    local = [str(d) for d in scan_mesh(n_devices, device)]
-    if process_count() <= 1:
-        return [torch.device(d) for d in local]
+    :class:`ProcessMesh` of every process's shards in rank order, of which
+    ``n_devices`` counts the first in all (JAX's global devices); it
+    raises where that leaves a process without a shard."""
+    group = process_count() > 1
+    if devices is None:
+        devices = scan_mesh(None if group else n_devices, device)
+    local = [str(d) for d in devices]
+    if not group:
+        return [torch.device(d) for d in _first(local, n_devices)]
     import torch.distributed as dist
 
     gathered = [None] * process_count()
     dist.all_gather_object(gathered, local)
+    owners = _first([r for r, shards in enumerate(gathered) for _ in shards],
+                    n_devices)
+    idle = sorted(set(range(len(gathered))) - set(owners))
+    if idle:
+        raise ValueError(f"the first {len(owners)} shards of the group leave "
+                         f"process(es) {idle} without a shard")
     return ProcessMesh(
-        owners=tuple(r for r, shards in enumerate(gathered) for _ in shards),
-        devices=tuple(d for shards in gathered for d in shards),
+        owners=tuple(owners),
+        devices=tuple(d for shards in gathered for d in shards)[:len(owners)],
         rank=process_index())
+
+
+def _first(shards: list, n) -> list:
+    """The first ``n`` of ``shards`` (all where ``n`` is None); ValueError
+    where there are fewer."""
+    if n is None:
+        return shards
+    if len(shards) < int(n):
+        raise ValueError(f"requested {n} devices, only {len(shards)} "
+                         "available")
+    return shards[:int(n)]
 
 
 @dataclasses.dataclass(frozen=True)

@@ -54,8 +54,10 @@ class ScanConfig:
 
     def mesh(self):
         """The shard list of ``-d`` (:func:`scan_mesh`: the first N local
-        devices, repeated past their count; "all" every local card), or
-        None where that is one shard."""
+        cards, at most the cards there are; "all" every local card; on
+        the CPU, N CPU shards), or None where that is one shard, as in
+        JAX: on one card ``-d 4`` and ``-d all`` run the one-device scan,
+        and under a launcher each process has its one card."""
         if self.n_devices is None:
             return None
         from ld_tools_tpu_torch.ops.ld_stream import scan_mesh

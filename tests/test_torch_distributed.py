@@ -286,27 +286,154 @@ def test_local_device_follows_local_rank(monkeypatch):
     assert distributed.local_device("cuda") is None
 
 
-def test_scan_mesh_takes_local_cards_and_repeats_them(monkeypatch):
-    """The first n local cards, repeated past their count (four shards
-    on one card); one card per process under a launcher; on the CPU, n
-    CPU shards."""
+def _fake_cards(monkeypatch, n):
+    """``n`` CUDA cards as the port's device helpers see them."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: n)
+    return [torch.device("cuda", k) for k in range(n)]
+
+
+def test_scan_mesh_takes_the_first_local_cards(monkeypatch):
+    """The first n local cards, at most the cards there are (JAX's
+    ``local_devices()[:n]``); one card per process under a launcher; on
+    the CPU, n CPU shards."""
     import torch
 
     from ld_tools_tpu_torch.ops.ld_stream import scan_mesh
 
     cuda = [torch.device("cuda", k) for k in range(3)]
-    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    _fake_cards(monkeypatch, 1)
     monkeypatch.delenv("WORLD_SIZE", raising=False)
     assert scan_mesh() == cuda[:1]
-    assert scan_mesh(4) == cuda[:1] * 4
-    monkeypatch.setattr(torch.cuda, "device_count", lambda: 3)
+    assert scan_mesh(4) == cuda[:1]
+    _fake_cards(monkeypatch, 3)
     assert scan_mesh() == cuda
     assert scan_mesh(2) == cuda[:2]
-    assert scan_mesh(4) == cuda + cuda[:1]
+    assert scan_mesh(4) == cuda
     monkeypatch.setenv("WORLD_SIZE", "2")
     monkeypatch.setenv("LOCAL_RANK", "1")
     assert scan_mesh() == [cuda[1]]
-    assert scan_mesh(2) == [cuda[1]] * 2
+    assert scan_mesh(2) == [cuda[1]]
     assert scan_mesh(3, device="cpu") == [torch.device("cpu")] * 3
     assert scan_mesh(device="cpu") == [torch.device("cpu")]
+
+
+def test_n_devices_past_the_cards_raise(monkeypatch):
+    """``make_mesh(4)`` and ``dryrun_multichip(4)`` on one card raise
+    ValueError, as JAX's ``make_mesh`` raises and its dry run asserts;
+    nothing runs first."""
+    from ld_tools_tpu_torch.entry import dryrun_multichip
+    from ld_tools_tpu_torch.parallel import make_mesh
+
+    cuda = _fake_cards(monkeypatch, 1)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert make_mesh() == make_mesh(1) == cuda
+    with pytest.raises(ValueError, match="requested 4 devices, only 1"):
+        make_mesh(4)
+    with pytest.raises(ValueError, match="requested 4 devices, only 1"):
+        dryrun_multichip(4)
+    cuda = _fake_cards(monkeypatch, 3)
+    assert make_mesh(2) == cuda[:2]
+    with pytest.raises(ValueError, match="requested 4 devices, only 3"):
+        make_mesh(4)
+
+
+def test_make_mesh_takes_an_explicit_shard_list(monkeypatch):
+    """``devices=`` is this process's shard list as given, a card
+    repeating on purpose; ``n_devices`` still takes its first n and
+    raises past its length."""
+    import torch
+
+    from ld_tools_tpu_torch.parallel import make_mesh
+
+    _fake_cards(monkeypatch, 1)
+    four = [torch.device("cuda", 0)] * 4
+    assert make_mesh(devices=["cuda:0"] * 4) == four
+    assert make_mesh(4, devices=four) == four
+    assert make_mesh(2, devices=four) == four[:2]
+    with pytest.raises(ValueError, match="requested 5 devices, only 4"):
+        make_mesh(5, devices=four)
+    assert make_mesh(devices=["cpu", "cpu"]) == [torch.device("cpu")] * 2
+
+
+def test_scan_config_mesh_on_one_card_is_the_one_device_scan(monkeypatch):
+    """``-d 4`` and ``-d all`` on one card give no mesh (the one-device
+    scan, as the JAX tool on one chip); on three cards ``-d 2`` is the
+    first two; ``-E torch -d 4`` is four CPU shards."""
+    import torch
+
+    from ld_tools_tpu_torch.tools.scan import ScanConfig
+
+    def mesh(n, device="cuda"):
+        return ScanConfig(chroms=(), trg_dir_path="out",
+                          ld_measure="r_square", ld_low_thres=0.8,
+                          max_dist=None, device=device,
+                          n_devices=n).mesh()
+
+    _fake_cards(monkeypatch, 1)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    assert mesh(4) is None and mesh("all") is None and mesh(None) is None
+    cuda = _fake_cards(monkeypatch, 3)
+    assert mesh(2) == cuda[:2] and mesh(4) == cuda and mesh("all") == cuda
+    assert mesh(4, device="cpu") == [torch.device("cpu")] * 4
+    # under a launcher each process has its own card: one shard
+    monkeypatch.setenv("WORLD_SIZE", "2")
+    monkeypatch.setenv("LOCAL_RANK", "0")
+    assert mesh(2, device="cuda:0") is None
+
+
+def _fake_group(monkeypatch, rank, shards_by_rank):
+    """A two-process torch.distributed group as ``make_mesh`` sees it:
+    ``all_gather_object`` hands back ``shards_by_rank``."""
+    import torch.distributed as dist
+
+    from ld_tools_tpu_torch.parallel import sweep
+
+    def all_gather_object(out, obj):
+        assert obj == shards_by_rank[rank]
+        out[:] = shards_by_rank
+
+    monkeypatch.setattr(sweep, "process_count", lambda: len(shards_by_rank))
+    monkeypatch.setattr(sweep, "process_index", lambda: rank)
+    monkeypatch.setattr(dist, "all_gather_object", all_gather_object)
+
+
+@pytest.mark.parametrize("rank", [0, 1])
+def test_make_mesh_counts_shards_over_the_group(monkeypatch, rank):
+    """Under a group, ``make_mesh(n)`` is the first n shards in all (JAX's
+    global devices), not n a process: two processes of one CPU shard give
+    two shards for n = 2, and n = 3 raises; n = 1 would leave a process
+    without a shard and raises too."""
+    from ld_tools_tpu_torch.parallel import make_mesh
+
+    _fake_group(monkeypatch, rank, [["cpu"], ["cpu"]])
+    mesh = make_mesh(2, device="cpu")
+    assert (mesh.owners, mesh.devices, mesh.rank) == ((0, 1), ("cpu", "cpu"),
+                                                      rank)
+    assert make_mesh(device="cpu") == mesh
+    with pytest.raises(ValueError, match="requested 3 devices, only 2"):
+        make_mesh(3, device="cpu")
+    with pytest.raises(ValueError, match=r"process\(es\) \[1\] without"):
+        make_mesh(1, device="cpu")
+    # explicit lists of two shards a process: four in all, three of them
+    _fake_group(monkeypatch, rank, [["cpu", "cpu"], ["cpu", "cpu"]])
+    assert len(make_mesh(devices=["cpu", "cpu"])) == 4
+    assert make_mesh(3, devices=["cpu", "cpu"]).owners == (0, 0, 1)
+
+
+def test_cli_d4_on_the_cpu_writes_the_d1_tsv(store, tmp_path):
+    """``-E torch -d 4`` (four CPU shards) writes the bytes of ``-d 1``
+    (the one-device scan)."""
+    got = {}
+    for d in ("1", "4"):
+        out = tmp_path / f"d{d}"
+        reports = torch_ld_scan.main([
+            "-C", "all", "-D", store, "-t", str(out), "-f", "-E", "torch",
+            "-z", "0.5", "-d", d])
+        got[d] = {n: open(out / n, "rb").read()
+                  for n in sorted(os.listdir(out))}
+        assert [r.stats["shards"] for r in reports] == (
+            [int(d)] * len(CHROMS))
+    assert got["4"] == got["1"] and len(got["1"]) == len(CHROMS)

@@ -47,7 +47,7 @@ def jax_hits():
 @pytest.mark.parametrize("n", [1, 2, 4])
 def test_scan_over_cpu_shards_finds_the_jax_hits(n, jax_hits):
     G, pos = scaling._workload(V, H)
-    seconds, hits = scaling.bench_scan(G, pos, n, "cpu", reps=1)
+    seconds, hits = scaling.bench_scan(G, pos, ["cpu"] * n, "cpu", reps=1)
     assert seconds > 0 and len(jax_hits) > 0
     np.testing.assert_array_equal(scaling.hit_keys(hits, V), jax_hits)
     if n > 1:
@@ -57,14 +57,14 @@ def test_scan_over_cpu_shards_finds_the_jax_hits(n, jax_hits):
 def test_hits_that_differ_between_mesh_sizes_raise(monkeypatch, capsys):
     real = scaling.bench_scan
 
-    def one_hit_short(G, pos, n, device, reps=3):
-        seconds, hits = real(G, pos, n, device, reps=1)
-        if n == 2:
+    def one_hit_short(G, pos, mesh, device, reps=3):
+        seconds, hits = real(G, pos, mesh, device, reps=1)
+        if len(mesh) == 2:
             hits = types.SimpleNamespace(i=hits.i[1:], j=hits.j[1:])
         return seconds, hits
 
     monkeypatch.setattr(scaling, "bench_scan", one_hit_short)
-    monkeypatch.setattr(scaling, "bench_ring", lambda G, n, device: 1.0)
+    monkeypatch.setattr(scaling, "bench_ring", lambda G, mesh, device: 1.0)
     with pytest.raises(RuntimeError, match="hit sets differ"):
         scaling.run(V, H, "cpu")
     # the one-shard row was printed before the mismatch
@@ -82,7 +82,8 @@ def test_main_prints_a_row_per_mesh_size_and_the_table(tmp_path, capsys):
     keys = {"devices", "scan_s", "scan_gpairs_per_s", "scan_speedup",
             "scan_efficiency", "ring_s", "ring_speedup", "hits"}
     for r in rows:
-        assert set(r) == keys | {"launches"} and r["launches"] == {}
+        assert set(r) == keys | {"cards", "launches"} and r["launches"] == {}
+        assert r["cards"] == 1  # every shard on the one CPU
     out = capsys.readouterr().out
     printed = [json.loads(ln) for ln in out.splitlines()
                if ln.startswith('{"devices"')]
@@ -90,3 +91,30 @@ def test_main_prints_a_row_per_mesh_size_and_the_table(tmp_path, capsys):
     table = doc.read_text()
     assert table in out and "CPU repeated" in table
     assert table.count("\n| ") == len(rows) + 1  # header and one per size
+
+
+def test_shard_lists_and_the_table_name_their_cards(monkeypatch):
+    """n shards are the first n cards where there are n, else the first
+    card n times; the rows' ``cards`` and the table's prose say which
+    rows had fewer cards than shards, and only those."""
+    import torch
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    cuda = [torch.device("cuda", k) for k in range(2)]
+    assert [scaling.shard_list(n, "cuda") for n in (1, 2, 4)] == [
+        cuda[:1], cuda, cuda[:1] * 4]
+    assert scaling.shard_list(4, "cpu") == [torch.device("cpu")] * 4
+    monkeypatch.setattr(scaling.common, "describe_device",
+                        lambda dev: "device: a card")
+    rows = [dict(devices=n, cards=len(set(scaling.shard_list(n, "cuda"))),
+                 scan_s=1.0, scan_gpairs_per_s=1.0, scan_speedup=1.0,
+                 scan_efficiency=round(1 / n, 2), ring_s=1.0,
+                 ring_speedup=1.0) for n in scaling.MESH_SIZES]
+    text = scaling.table(rows, V, H, torch.device("cuda"))
+    assert "2 local card(s)" in text
+    assert "At 4, 8 shards there are fewer cards" in text
+    assert "| 2 | 2 | 1.0 |" in text and "| 8 | 1 | 1.0 |" in text
+    assert "fewer cards" not in scaling.table(rows[:2], V, H,
+                                              torch.device("cuda"))

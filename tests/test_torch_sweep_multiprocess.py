@@ -3,9 +3,9 @@ CPU.
 
 Mirrors tests/test_distributed.py:81 with the port's own code (the
 workers import no JAX): two real processes join a gloo group from
-torchrun's variables, each brings two local shards, and ``make_mesh()``
-spans the four; the ring's and the trapezoid's blocks cross the process
-boundary at every step.  Each process's row bands must equal the port's
+torchrun's variables, each brings two local shards (an explicit list),
+and ``make_mesh(devices=...)`` spans the four; the ring's and the
+trapezoid's blocks cross the process boundary at every step.  Each process's row bands must equal the port's
 one-device sweep bit for bit, and the chromosome list splits round-robin.
 The entry points (ld_tools_tpu_torch/entry.py) are held against
 __graft_entry__.py: ``entry`` within 1e-6 of the JAX step run in a child
@@ -40,7 +40,7 @@ rng = np.random.default_rng(0)
 mats = {"32": (rng.random((32, 40)) < 0.4).astype(np.int8)}
 mats["60"] = (rng.random((60, 40)) < rng.uniform(0.1, 0.9, (60, 1))
               ).astype(np.int8)
-mesh = make_mesh(2, device="cpu")  # 2 local shards: 4 over the group
+mesh = make_mesh(devices=["cpu", "cpu"])  # 2 local shards: 4 over the group
 assert isinstance(mesh, ProcessMesh) and len(mesh) == 4, mesh
 out = {"pid": process_index(), "chroms": chroms,
        "owners": list(mesh.owners), "rows": {}, "equal": {}}
