@@ -32,10 +32,9 @@ import urllib.request
 import numpy as np
 
 from ld_tools_tpu_torch.ingest import pack
-from ld_tools_tpu_torch.utils.logging import Counters, get_logger
+from ld_tools_tpu_torch.utils.logging import get_logger
 
 log = get_logger("ingest.prep")
-counters = Counters()
 
 PANEL_URL = (
     "ftp://ftp.1000genomes.ebi.ac.uk/vol1/ftp/release/20130502/"
@@ -192,8 +191,6 @@ def _pack_chromosome(vcf_path: str, intgen_dir_path: str, chrom: str):
         vt=vt, samples=samples, genotypes_packed=packed,
         n_haplotypes=n_hap, pgroup=pgroup, ploidy_profiles=profiles,
     )
-    counters.add("variants_ingested", len(pos))
-    counters.add("chromosomes_packed")
     log.info(
         "packed chr%s: %d variants x %d haplotypes in %.1fs (%.0f variants/s)",
         chrom,

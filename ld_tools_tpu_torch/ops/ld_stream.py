@@ -37,12 +37,12 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
-import time
 
 import numpy as np
 import torch
 
 from ld_tools_tpu_torch.ingest import pack as _pack
+from ld_tools_tpu_torch.ops import _cuda_build
 from ld_tools_tpu_torch.ops.exact import exact_ld_elementwise, round4
 from ld_tools_tpu_torch.ops.ld_kernels import (
     block_keep_mask,
@@ -60,6 +60,7 @@ from ld_tools_tpu_torch.utils.device import device_guard, resolve_device
 from ld_tools_tpu_torch.utils.distributed import (local_device, process_count,
                                                   process_index)
 from ld_tools_tpu_torch.utils.logging import get_logger
+from ld_tools_tpu_torch.utils.profiling import span
 
 log = get_logger("ops.ld_stream")
 
@@ -139,7 +140,8 @@ class Resident:
 
 def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
                      packed: bool = False, resident: str = "auto",
-                     band: int = _BAND, chunk: int = _CHUNK) -> Resident:
+                     band: int = _BAND, chunk: int = _CHUNK,
+                     stats: dict = None) -> Resident:
     """Turn the store's host arrays into the scan's device tensors.
 
     ``G_or_packed`` is int8 (V, H) {0,1}, or with ``packed=True`` the
@@ -151,53 +153,60 @@ def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
     (ld_stream.py:1108-1127).  Padding follows the JAX scan at the tiling
     ``band`` x ``chunk`` (clamped as the scan clamps it): V_pad =
     round_up(V, max(band, chunk)) + max(band, chunk), the haplotype axis
-    to a multiple of 128 (bytes, when packed).
+    to a multiple of 128 (bytes, when packed).  ``stats`` gets the host
+    part (popcounts, padded arrays) as ``upload_host_s`` and the copies
+    (with any unpack on the device, not waited for) as ``upload_copy_s``.
     """
     if resident not in _RESIDENT_MODES:
         raise ValueError(f"resident must be one of {_RESIDENT_MODES}, "
                          f"got {resident!r}")
+    stats = {} if stats is None else stats
     dev = resolve_device(device)
-    if packed:
-        src = np.ascontiguousarray(G_or_packed, dtype=np.uint8)
-        v = src.shape[0]
-        c1_full = _pack.popcounts(src)
-        w = _round_up(src.shape[1], 128)
-    else:
-        src = np.asarray(G_or_packed, dtype=np.int8)
-        v, h = src.shape
-        c1_full = src.astype(np.int64).sum(axis=1)
-        w = _round_up(h, 128)
-    band = min(band, _round_up(v, 256))
-    chunk = min(chunk, _round_up(v, 512))
-    v_pad = _round_up(v, max(band, chunk)) + max(band, chunk)
-    g_host = np.zeros((v_pad, w), dtype=src.dtype)
-    g_host[:v, : src.shape[1]] = src
-    c1_host = np.zeros((v_pad, 1), dtype=np.float32)
-    c1_host[:v, 0] = c1_full
-    p_host = c1_host / np.float32(n_haplotypes)
-    pq_host = p_host * (np.float32(1.0) - p_host)
-    ipq_host = np.where(
-        pq_host == 0.0,
-        np.float32(0.0),
-        np.float32(1.0) / np.where(pq_host == 0.0, np.float32(1.0), pq_host),
-    ).astype(np.float32)
-    pos_host = np.full((v_pad,), -(2**30), dtype=np.int32)
-    pos_host[:v] = np.asarray(pos, dtype=np.int64)
-    g = torch.from_numpy(g_host).to(dev)
-    del g_host
-    if packed and resident != "packed" and (
-            resident == "dense" or v_pad * w * 8 <= dense_resident_limit()):
-        # inflate once on the device: the transfer stayed packed
-        g = unpack_rows_device(g)
-        packed = False
-    return Resident(
-        g=g,
-        c1=torch.from_numpy(c1_host).to(dev),
-        ipq=torch.from_numpy(ipq_host).to(dev),
-        pos=torch.from_numpy(pos_host).to(dev),
-        c1_full=c1_full,
-        packed=packed,
-    )
+    with span("scan.upload_host", stats, "upload_host_s"):
+        if packed:
+            src = np.ascontiguousarray(G_or_packed, dtype=np.uint8)
+            v = src.shape[0]
+            c1_full = _pack.popcounts(src)
+            w = _round_up(src.shape[1], 128)
+        else:
+            src = np.asarray(G_or_packed, dtype=np.int8)
+            v, h = src.shape
+            c1_full = src.astype(np.int64).sum(axis=1)
+            w = _round_up(h, 128)
+        band = min(band, _round_up(v, 256))
+        chunk = min(chunk, _round_up(v, 512))
+        v_pad = _round_up(v, max(band, chunk)) + max(band, chunk)
+        g_host = np.zeros((v_pad, w), dtype=src.dtype)
+        g_host[:v, : src.shape[1]] = src
+        c1_host = np.zeros((v_pad, 1), dtype=np.float32)
+        c1_host[:v, 0] = c1_full
+        p_host = c1_host / np.float32(n_haplotypes)
+        pq_host = p_host * (np.float32(1.0) - p_host)
+        ipq_host = np.where(
+            pq_host == 0.0,
+            np.float32(0.0),
+            np.float32(1.0) / np.where(pq_host == 0.0, np.float32(1.0),
+                                       pq_host),
+        ).astype(np.float32)
+        pos_host = np.full((v_pad,), -(2**30), dtype=np.int32)
+        pos_host[:v] = np.asarray(pos, dtype=np.int64)
+    with span("scan.upload_copy", stats, "upload_copy_s"):
+        g = torch.from_numpy(g_host).to(dev)
+        del g_host
+        if packed and resident != "packed" and (
+                resident == "dense"
+                or v_pad * w * 8 <= dense_resident_limit()):
+            # inflate once on the device: the transfer stayed packed
+            g = unpack_rows_device(g)
+            packed = False
+        return Resident(
+            g=g,
+            c1=torch.from_numpy(c1_host).to(dev),
+            ipq=torch.from_numpy(ipq_host).to(dev),
+            pos=torch.from_numpy(pos_host).to(dev),
+            c1_full=c1_full,
+            packed=packed,
+        )
 
 
 # Device-resident scan inputs cached across calls: a repeat scan of the
@@ -428,6 +437,18 @@ def stream_threshold_scan(
     fingerprints the inputs, the tiling and the process's share, not the
     mesh) and a later call with the same fingerprint loads them instead
     of scanning the batch again.  The hits depend on none of these.
+
+    ``ScanHits.stats`` holds each phase's seconds, each phase a span
+    (``utils.profiling.span``, named ``scan.<phase>``): ``host_prep_s``,
+    ``upload_s`` (its parts ``upload_host_s`` and ``upload_copy_s``),
+    ``plan_s``, ``count_s`` (pass 1's launches and the waits for its
+    counts), ``fetch_s`` (pass 2), ``finish_s`` (``gather_s`` inside it for
+    a cooperative scan), and the work's counts (``resident_bytes``,
+    ``blocks``, ``hit_blocks``, ``device_hits``, ...).  ``pass1_device_s``
+    is pass 1's device time between two CUDA events on the stream the
+    count kernels launch on; it is left out on the CPU, over a shard list
+    of more than one shard, and when every batch resumed from a
+    checkpoint.
     """
     if resident not in _RESIDENT_MODES:
         raise ValueError(f"resident must be one of {_RESIDENT_MODES}, "
@@ -442,72 +463,79 @@ def stream_threshold_scan(
     dev = devices[0]
     n_shards = len(devices)
 
-    stats = {"host_prep_s": 0.0, "upload_s": 0.0, "count_s": 0.0,
+    stats = {"host_prep_s": 0.0, "upload_s": 0.0, "upload_host_s": 0.0,
+             "upload_copy_s": 0.0, "plan_s": 0.0, "count_s": 0.0,
              "fetch_s": 0.0, "finish_s": 0.0, "shards": n_shards}
-    t0 = time.perf_counter()
-    packed = G_packed is not None
-    if packed:
-        src = np.ascontiguousarray(G_packed, dtype=np.uint8)
-        if n_haplotypes is None:
-            raise ValueError("G_packed requires n_haplotypes")
-        v = src.shape[0]
-        h = int(n_haplotypes)
-    else:
-        src = np.asarray(G, dtype=np.int8)
-        v, h = src.shape
-        if n_haplotypes is None:
-            n_haplotypes = h
-    if measure not in ("r_square", "d_prime"):
-        raise ValueError(
-            f"measure must be 'r_square' or 'd_prime', got {measure!r}")
-    if v == 0:
-        return _empty_hits(exact, stats)
-    if pos is None:
-        pos = np.arange(v, dtype=np.int64)
-    pos = np.asarray(pos, dtype=np.int64)
-    band = min(band, _round_up(v, 256))
-    chunk = min(chunk, _round_up(v, 512))
-    sel = 0 if measure == "r_square" else 1
-    margin_thres = float(thres) - 5e-4
-    use_dist = max_dist is not None
-    if use_dist:
-        # the host block pruning assumes ascending positions, and the
-        # device filter carries positions as int32 with a -2^30 padding
-        # sentinel: violating either would drop or keep the wrong pairs
-        if pos.shape[0] != v:
-            raise ValueError("pos length must equal the variant count")
-        if v and (np.any(np.diff(pos) < 0) or pos[0] < 0
-                  or pos[-1] >= 2**30):
+    with span("scan.host_prep", stats, "host_prep_s"):
+        packed = G_packed is not None
+        if packed:
+            src = np.ascontiguousarray(G_packed, dtype=np.uint8)
+            if n_haplotypes is None:
+                raise ValueError("G_packed requires n_haplotypes")
+            v = src.shape[0]
+            h = int(n_haplotypes)
+        else:
+            src = np.asarray(G, dtype=np.int8)
+            v, h = src.shape
+            if n_haplotypes is None:
+                n_haplotypes = h
+        if measure not in ("r_square", "d_prime"):
             raise ValueError(
-                "max_dist scans require ascending positions in "
-                "[0, 2^30); sort the variants (the packed store always "
-                "is) or drop max_dist"
-            )
-    pos_sha = (None if resident_key is None and checkpoint_dir is None else
-               hashlib.sha256(np.ascontiguousarray(pos).tobytes()).hexdigest())
+                f"measure must be 'r_square' or 'd_prime', got {measure!r}")
+        if v == 0:
+            return _empty_hits(exact, stats)
+        if pos is None:
+            pos = np.arange(v, dtype=np.int64)
+        pos = np.asarray(pos, dtype=np.int64)
+        band = min(band, _round_up(v, 256))
+        chunk = min(chunk, _round_up(v, 512))
+        sel = 0 if measure == "r_square" else 1
+        margin_thres = float(thres) - 5e-4
+        use_dist = max_dist is not None
+        if use_dist:
+            # the host block pruning assumes ascending positions, and the
+            # device filter carries positions as int32 with a -2^30
+            # padding sentinel: violating either would drop or keep the
+            # wrong pairs
+            if pos.shape[0] != v:
+                raise ValueError("pos length must equal the variant count")
+            if v and (np.any(np.diff(pos) < 0) or pos[0] < 0
+                      or pos[-1] >= 2**30):
+                raise ValueError(
+                    "max_dist scans require ascending positions in "
+                    "[0, 2^30); sort the variants (the packed store always "
+                    "is) or drop max_dist"
+                )
+        pos_sha = (None if resident_key is None and checkpoint_dir is None
+                   else hashlib.sha256(
+                       np.ascontiguousarray(pos).tobytes()).hexdigest())
 
-    cache_key = None
-    if resident_key is not None:
-        # the layout: "auto" resolves against the limit in force
-        layout = (resident, dense_resident_limit() if resident == "auto"
-                  else None)
-        cache_key = (
-            resident_key, packed, v, h, int(n_haplotypes), band, chunk,
-            layout, tuple(str(d) for d in dict.fromkeys(devices)), pos_sha,
-        )
-    res = _resident_cache_get(cache_key) if cache_key is not None else None
-    stats["resident_hit"] = 1.0 if res is not None else 0.0
-    stats["host_prep_s"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    if res is None:
-        res = _replicate(prepare_resident(
-            src, n_haplotypes, pos, dev, packed=packed, resident=resident,
-            band=band, chunk=chunk), devices)
-        if cache_key is not None:
+        cache_key = None
+        if resident_key is not None:
+            # the layout: "auto" resolves against the limit in force
+            layout = (resident, dense_resident_limit() if resident == "auto"
+                      else None)
+            cache_key = (
+                resident_key, packed, v, h, int(n_haplotypes), band, chunk,
+                layout, tuple(str(d) for d in dict.fromkeys(devices)),
+                pos_sha,
+            )
+        res = (_resident_cache_get(cache_key) if cache_key is not None
+               else None)
+        stats["resident_hit"] = 1.0 if res is not None else 0.0
+    with span("scan.upload", stats, "upload_s"):
+        fresh = res is None
+        if fresh:
+            res = prepare_resident(
+                src, n_haplotypes, pos, dev, packed=packed,
+                resident=resident, band=band, chunk=chunk, stats=stats)
+        with span("scan.upload_copy", stats, "upload_copy_s"):
+            if fresh:
+                res = _replicate(res, devices)
+            for d in res:
+                _sync(d)
+        if fresh and cache_key is not None:
             _resident_cache_put(cache_key, res)
-    for d in res:
-        _sync(d)
-    stats["upload_s"] = time.perf_counter() - t0
     main = res[dev]
 
     n_hap = int(n_haplotypes)
@@ -526,66 +554,81 @@ def stream_threshold_scan(
     stats["resident_packed"] = float(main.packed)
     stats["resident_bytes"] = float(main.g.numel() * main.g.element_size())
 
-    bi_np, bj_np = _scan_blocks(v, pos, count_block, max_dist)
-    tiles, home = _scan_tiles(v, pos, band, chunk, bi_np, bj_np,
-                              count_block, max_dist)
-    n_proc, proc_idx = ((process_count(), process_index()) if multiprocess
-                        else (1, 0))
-    # this process's tiles are tiles[proc_idx::n_proc], max_tiles_per_call
-    # of them a batch
-    mine = home % n_proc == proc_idx
-    batch_of = home // n_proc // max_tiles_per_call
-    n_my_tiles = len(range(proc_idx, len(tiles), n_proc))
-    n_batches = -(-n_my_tiles // max_tiles_per_call)
-    stats["batches"] = n_batches
+    with span("scan.plan", stats, "plan_s"):
+        bi_np, bj_np = _scan_blocks(v, pos, count_block, max_dist)
+        tiles, home = _scan_tiles(v, pos, band, chunk, bi_np, bj_np,
+                                  count_block, max_dist)
+        n_proc, proc_idx = ((process_count(), process_index())
+                            if multiprocess else (1, 0))
+        # this process's tiles are tiles[proc_idx::n_proc],
+        # max_tiles_per_call of them a batch
+        mine = home % n_proc == proc_idx
+        batch_of = home // n_proc // max_tiles_per_call
+        n_my_tiles = len(range(proc_idx, len(tiles), n_proc))
+        n_batches = -(-n_my_tiles // max_tiles_per_call)
+        stats["batches"] = n_batches
 
-    ckpt = None
-    if checkpoint_dir is not None:
-        os.makedirs(checkpoint_dir, exist_ok=True)
-        # what JAX's fingerprint hashes (ld_stream.py:1197-1204), a tag of
-        # the port's own and the rest of its tiling; (n_proc, proc_idx)
-        # make a cooperative scan's files per process
-        fp = hashlib.sha256(repr((
-            "torch-v1", want, v, h, n_hap, measure, thres, max_dist, band,
-            chunk, count_block, max_tiles_per_call, pos_sha, n_proc,
-            proc_idx,
-        )).encode()).hexdigest()[:16]
+        ckpt = None
+        if checkpoint_dir is not None:
+            os.makedirs(checkpoint_dir, exist_ok=True)
+            # what JAX's fingerprint hashes (ld_stream.py:1197-1204), a tag
+            # of the port's own and the rest of its tiling; (n_proc,
+            # proc_idx) make a cooperative scan's files per process
+            fp = hashlib.sha256(repr((
+                "torch-v1", want, v, h, n_hap, measure, thres, max_dist,
+                band, chunk, count_block, max_tiles_per_call, pos_sha,
+                n_proc, proc_idx,
+            )).encode()).hexdigest()[:16]
 
-        def ckpt(k):
-            return os.path.join(checkpoint_dir, f"scan_{fp}_batch{k}.npz")
+            def ckpt(k):
+                return os.path.join(checkpoint_dir,
+                                    f"scan_{fp}_batch{k}.npz")
 
     # pass 1: every batch's count pass launched before any is read (the
     # block lists go up in one copy: a copy from pageable host memory
     # would wait for the kernels queued before it)
-    t0 = time.perf_counter()
-    live = [k for k in range(n_batches)
-            if ckpt is None or not os.path.exists(ckpt(k))]
-    blocks = {k: np.flatnonzero(mine & (batch_of == k)) for k in live}
-    order = np.concatenate([blocks[k] for k in live]) if live else \
-        np.zeros((0,), dtype=np.int64)
-    cij_all = pack_block_coords(bi_np[order], bj_np[order])
-    cij_dev = torch.from_numpy(cij_all).to(dev)
-    params = dict(params_i=(n_hap, max_dist if use_dist else 0),
-                  params_f=(margin_thres,), packed=main.packed, sel=sel,
-                  exact_mask=exact_mask, use_dist=use_dist,
-                  block_m=count_block, block_n=count_block)
-    counted = {}
-    shard_blocks = [0] * n_shards
-    lo = 0
-    for k in live:
-        cij = cij_dev[lo:lo + blocks[k].size]
-        lo += blocks[k].size
-        if n_shards == 1:
-            counted[k] = ld_band_count(main.g, main.c1, main.ipq, main.pos,
-                                       cij, **params)
-        else:
-            counted[k] = ld_band_count_sharded(
-                devices, *({d: getattr(r, f) for d, r in res.items()}
-                           for f in ("g", "c1", "ipq", "pos")), cij,
-                **params)
-        for s, (a, b) in enumerate(shard_slices(blocks[k].size, n_shards)):
-            shard_blocks[s] += b - a
-    stats["count_s"] += time.perf_counter() - t0
+    with span("scan.count", stats, "count_s"):
+        live = [k for k in range(n_batches)
+                if ckpt is None or not os.path.exists(ckpt(k))]
+        blocks = {k: np.flatnonzero(mine & (batch_of == k)) for k in live}
+        order = np.concatenate([blocks[k] for k in live]) if live else \
+            np.zeros((0,), dtype=np.int64)
+        cij_all = pack_block_coords(bi_np[order], bj_np[order])
+        cij_dev = torch.from_numpy(cij_all).to(dev)
+        params = dict(params_i=(n_hap, max_dist if use_dist else 0),
+                      params_f=(margin_thres,), packed=main.packed, sel=sel,
+                      exact_mask=exact_mask, use_dist=use_dist,
+                      block_m=count_block, block_n=count_block)
+        # pass 1's device time: two events on the stream the count kernels
+        # launch on, read once pass 2 has waited for the counts; the
+        # kernels' library is loaded (in a checkout's first scan, built)
+        # before the first, so that the stream does not idle between them
+        pass1 = None
+        if dev.type == "cuda" and n_shards == 1 and live:
+            _cuda_build.lib()
+            stream = torch.cuda.current_stream(dev)
+            pass1 = (torch.cuda.Event(enable_timing=True),
+                     torch.cuda.Event(enable_timing=True))
+            pass1[0].record(stream)
+        counted = {}
+        shard_blocks = [0] * n_shards
+        lo = 0
+        for k in live:
+            cij = cij_dev[lo:lo + blocks[k].size]
+            lo += blocks[k].size
+            if n_shards == 1:
+                counted[k] = ld_band_count(main.g, main.c1, main.ipq,
+                                           main.pos, cij, **params)
+            else:
+                counted[k] = ld_band_count_sharded(
+                    devices, *({d: getattr(r, f) for d, r in res.items()}
+                               for f in ("g", "c1", "ipq", "pos")), cij,
+                    **params)
+            for s, (a, b) in enumerate(shard_slices(blocks[k].size,
+                                                    n_shards)):
+                shard_blocks[s] += b - a
+        if pass1 is not None:
+            pass1[1].record(stream)
     stats["blocks"] = int(order.size)
     stats["shard_blocks"] = shard_blocks
     stats["batches_resumed"] = n_batches - len(live)
@@ -603,60 +646,60 @@ def stream_threshold_scan(
                 hits[name].append(saved[name])
             log.info("resumed batch %d from %s", k, ckpt(k))
             continue
-        t0 = time.perf_counter()
-        counts = counted.pop(k).cpu().numpy().astype(np.int64)
-        stats["count_s"] += time.perf_counter() - t0
-        t0 = time.perf_counter()
-        hit = blocks[k][counts > 0]
-        hit_counts = counts[counts > 0]
-        stats["hit_blocks"] += int(hit.size)
-        parts = {name: [] for name in hits}
-        for s, (a, b) in enumerate(shard_slices(hit.size, n_shards)):
-            stats["shard_hit_blocks"][s] += b - a
-            r = res[devices[s]]
-            with device_guard(devices[s]):
-                for lo in range(a, b, per_batch):
-                    hi = min(lo + per_batch, b)
-                    _fetch_blocks(
-                        r, sweep, bi_np[hit[lo:hi]], bj_np[hit[lo:hi]],
-                        hit_counts[lo:hi], parts, stats, v=v, n_hap=n_hap,
-                        outs=outs, want=want, cab_dtype=cab_dtype,
-                        margin_thres=margin_thres, max_dist=max_dist,
-                        sel=sel, exact_mask=exact_mask, use_dist=use_dist,
-                        count_block=count_block)
-        cat = ({name: np.concatenate(a) for name, a in parts.items()}
-               if parts["i"] else _empty_arrays(want, cab_np))
-        if ckpt is not None:
-            path = ckpt(k)
-            tmp = path + ".tmp"
-            with open(tmp, "wb") as fh:
-                np.savez(fh, **cat)
-            os.replace(tmp, path)
-        for name in hits:
-            hits[name].append(cat[name])
-        stats["fetch_s"] += time.perf_counter() - t0
+        with span("scan.count", stats, "count_s"):
+            counts = counted.pop(k).cpu().numpy().astype(np.int64)
+        with span("scan.fetch", stats, "fetch_s"):
+            hit = blocks[k][counts > 0]
+            hit_counts = counts[counts > 0]
+            stats["hit_blocks"] += int(hit.size)
+            parts = {name: [] for name in hits}
+            for s, (a, b) in enumerate(shard_slices(hit.size, n_shards)):
+                stats["shard_hit_blocks"][s] += b - a
+                r = res[devices[s]]
+                with device_guard(devices[s]):
+                    for lo in range(a, b, per_batch):
+                        hi = min(lo + per_batch, b)
+                        _fetch_blocks(
+                            r, sweep, bi_np[hit[lo:hi]], bj_np[hit[lo:hi]],
+                            hit_counts[lo:hi], parts, stats, v=v,
+                            n_hap=n_hap, outs=outs, want=want,
+                            cab_dtype=cab_dtype, margin_thres=margin_thres,
+                            max_dist=max_dist, sel=sel,
+                            exact_mask=exact_mask, use_dist=use_dist,
+                            count_block=count_block)
+            cat = ({name: np.concatenate(a) for name, a in parts.items()}
+                   if parts["i"] else _empty_arrays(want, cab_np))
+            if ckpt is not None:
+                path = ckpt(k)
+                tmp = path + ".tmp"
+                with open(tmp, "wb") as fh:
+                    np.savez(fh, **cat)
+                os.replace(tmp, path)
+            for name in hits:
+                hits[name].append(cat[name])
+    if pass1 is not None:
+        stats["pass1_device_s"] = pass1[0].elapsed_time(pass1[1]) / 1e3
 
-    t0 = time.perf_counter()
-    arrs = ({name: np.concatenate(a) for name, a in hits.items()}
-            if hits["i"] else _empty_arrays(want, cab_np))
-    if n_proc > 1:
-        # every process joins the gather (a collective), hit-less ones too
-        t1 = time.perf_counter()
-        arrs = _allgather_hits(arrs, want)
-        stats["gather_s"] = time.perf_counter() - t1
-    if arrs["i"].size == 0:
-        return _empty_hits(exact, stats)
-    order = np.lexsort((arrs["j"], arrs["i"]))
-    arrs = {name: a[order] for name, a in arrs.items()}
-    if not exact:
-        result = ScanHits(i=arrs["i"], j=arrs["j"], r_square=arrs["r2"],
-                          d_prime=arrs["dp"], exact=False)
-    else:
-        result = _exact_refilter_counts(
-            arrs["cab"], main.c1_full, n_haplotypes, arrs["i"], arrs["j"],
-            measure, thres,
-        )
-    stats["finish_s"] = time.perf_counter() - t0
+    with span("scan.finish", stats, "finish_s"):
+        arrs = ({name: np.concatenate(a) for name, a in hits.items()}
+                if hits["i"] else _empty_arrays(want, cab_np))
+        if n_proc > 1:
+            # every process joins the gather (a collective), hit-less ones
+            # too
+            with span("scan.gather", stats, "gather_s"):
+                arrs = _allgather_hits(arrs, want)
+        if arrs["i"].size == 0:
+            return _empty_hits(exact, stats)
+        order = np.lexsort((arrs["j"], arrs["i"]))
+        arrs = {name: a[order] for name, a in arrs.items()}
+        if not exact:
+            result = ScanHits(i=arrs["i"], j=arrs["j"], r_square=arrs["r2"],
+                              d_prime=arrs["dp"], exact=False)
+        else:
+            result = _exact_refilter_counts(
+                arrs["cab"], main.c1_full, n_haplotypes, arrs["i"],
+                arrs["j"], measure, thres,
+            )
     result.stats = stats
     log.info("scan phases: %s", " ".join(f"{k}={_fmt(x)}"
                                           for k, x in stats.items()))

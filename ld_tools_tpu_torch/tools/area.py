@@ -18,7 +18,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-import time
 
 import numpy as np
 
@@ -29,7 +28,7 @@ from ld_tools_tpu_torch.ops.exact import measures_rounded_block_both
 from ld_tools_tpu_torch.tools.common import DataConfig
 from ld_tools_tpu_torch.utils.device import engine_device, resolve_device
 from ld_tools_tpu_torch.utils.logging import get_logger
-from ld_tools_tpu_torch.utils.profiling import maybe_trace
+from ld_tools_tpu_torch.utils.profiling import maybe_trace, span
 
 log = get_logger("tools.area")
 
@@ -95,7 +94,9 @@ class AreaRunner:
     jobs), ``dispatch_s`` (host unpack, upload and issue of a group's
     counts), ``count_wait_s`` (waiting on them; on a mixed-ploidy
     chromosome also their f64 finish), ``finish_s`` (the uniform f64
-    finish) and ``write_s`` (the per-query files)."""
+    finish) and ``write_s`` (the per-query files), each a span of a
+    group's phase (``area.dispatch``, ``engine.wait``, ``area.finish``,
+    ``area.files``)."""
 
     def __init__(self, data: DataConfig, config: AreaConfig):
         self.data = data
@@ -246,9 +247,10 @@ class AreaRunner:
             )
 
         def timed_dispatch(*group):
-            t0 = time.perf_counter()
-            fin = dispatch(*group)
-            self._add(groups=1, dispatch_s=time.perf_counter() - t0)
+            phases = {}
+            with span("area.dispatch", phases, "dispatch_s"):
+                fin = dispatch(*group)
+            self._add(groups=1, **phases)
             return fin
 
         pending = None
@@ -256,38 +258,40 @@ class AreaRunner:
             pending = timed_dispatch(*groups[0])
         for gi, (qis, c_start, c_stop) in enumerate(groups):
             grp = q_rows[qis]
-            t0 = time.perf_counter()
-            finished = pending()
-            self._add(count_wait_s=time.perf_counter() - t0)
+            phases = {}
+            with span("engine.wait", phases, "count_wait_s"):
+                finished = pending()
+            self._add(**phases)
             if gi + 1 < len(groups):
                 pending = timed_dispatch(*groups[gi + 1])
-            t0 = time.perf_counter()
-            if mixed:
-                exacts = finished
-                r2_all = exacts.r_square_rounded()
-                dp_all = exacts.d_prime_rounded()
-                iz_pack = None
-            else:
-                # rounded f64 + sentinel masks: boxing the full group
-                # matrix into Python objects (r?_rounded) cost ~1 GB and
-                # seconds per 16M-cell group; only the few hit cells
-                # ever need the int-0 object form
-                c_ab, c1q, c1cols = finished
-                exacts = _UniformFreqs(
-                    np.asarray(c1q, np.float64) / float(n_hap),
-                    np.asarray(c1cols, np.float64) / float(n_hap),
+            phases = {}
+            with span("area.finish", phases, "finish_s"):
+                if mixed:
+                    exacts = finished
+                    r2_all = exacts.r_square_rounded()
+                    dp_all = exacts.d_prime_rounded()
+                    iz_pack = None
+                else:
+                    # rounded f64 + sentinel masks: boxing the full group
+                    # matrix into Python objects (r?_rounded) cost ~1 GB
+                    # and seconds per 16M-cell group; only the few hit
+                    # cells ever need the int-0 object form
+                    c_ab, c1q, c1cols = finished
+                    exacts = _UniformFreqs(
+                        np.asarray(c1q, np.float64) / float(n_hap),
+                        np.asarray(c1cols, np.float64) / float(n_hap),
+                    )
+                    r2_all, r2_iz, dp_all, dp_iz = (
+                        measures_rounded_block_both(c_ab, c1q, c1cols, n_hap)
+                    )
+                    iz_pack = (r2_iz, dp_iz)
+            with span("area.files", phases, "write_s"):
+                written += self._write_group(
+                    qis, grp, windows, c_start, exacts, r2_all, dp_all,
+                    iz_pack, chrom, pos, rsid, ref_ann, alt_ann, vt_ann,
+                    chr_dir_path, ext, meta_keys, meta_vals,
                 )
-                r2_all, r2_iz, dp_all, dp_iz = (
-                    measures_rounded_block_both(c_ab, c1q, c1cols, n_hap)
-                )
-                iz_pack = (r2_iz, dp_iz)
-            t1 = time.perf_counter()
-            written += self._write_group(
-                qis, grp, windows, c_start, exacts, r2_all, dp_all,
-                iz_pack, chrom, pos, rsid, ref_ann, alt_ann, vt_ann,
-                chr_dir_path, ext, meta_keys, meta_vals,
-            )
-            self._add(finish_s=t1 - t0, write_s=time.perf_counter() - t1)
+            self._add(**phases)
         return written
 
     def _write_group(

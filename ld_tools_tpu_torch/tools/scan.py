@@ -20,7 +20,7 @@ from ld_tools_tpu_torch.ops.exact import format_rounded
 from ld_tools_tpu_torch.tools.common import DataConfig
 from ld_tools_tpu_torch.utils.device import engine_device
 from ld_tools_tpu_torch.utils.logging import get_logger
-from ld_tools_tpu_torch.utils.profiling import maybe_trace
+from ld_tools_tpu_torch.utils.profiling import SPANNED, maybe_trace, span
 
 log = get_logger("tools.scan")
 
@@ -69,8 +69,13 @@ class ScanConfig:
 
 @dataclasses.dataclass
 class ScanReport:
-    """What one chromosome's scan wrote, with the scan's phase stats and
-    the seconds spent writing the TSV (``write_s``)."""
+    """What one chromosome's scan wrote, with its phase stats: the scan
+    driver's (``ScanHits.stats``; a mixed-ploidy chromosome's summed over
+    its segments, with its rectangles'), and the tool's own: ``open_s``
+    (store open, cohort layout, any column repack), ``write_s`` (the TSV)
+    with its parts ``format_s`` (the measures' strings) and ``emit_s``
+    (the gathers, columns and lines, written), ``tsv_bytes``, and
+    ``spanned_s``, the seconds of the scan that a program span names."""
 
     chrom: str
     path: str
@@ -111,11 +116,11 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
     zip-truncation semantics, calc_ld.py:30-33).  Hits are merged and
     sorted by (i, j).  The stats hold the segment scans' numeric stats
     summed (phases, blocks; ``resident_packed`` counts the packed
-    segments), ``segments``, ``rects`` and the rectangles'
-    ``rect_dispatch_s`` and ``rect_finish_s``.
+    segments), ``segments``, ``rects``, ``repack_s`` (every column
+    repack), ``merge_s`` and the rectangles' ``rect_dispatch_s`` and
+    ``rect_finish_s``, with its parts ``rect_wait_s`` (the engine's counts
+    arriving) and ``rect_exact_s`` (their f64 finish).
     """
-    import time
-
     import numpy as np
 
     from ld_tools_tpu_torch.ingest import pack
@@ -135,13 +140,14 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
              cd.chrom, len(segs))
 
     parts = []
-    stats = {}
+    stats = {"repack_s": 0.0}
 
     def compact_seg(s0, s1, gid):
-        return pack.pack_columns(
-            np.ascontiguousarray(cd.packed[s0:s1]),
-            cp.cols_for(gid), cd.n_haplotypes,
-        )
+        with span("scanx.repack", stats, "repack_s"):
+            return pack.pack_columns(
+                np.ascontiguousarray(cd.packed[s0:s1]),
+                cp.cols_for(gid), cd.n_haplotypes,
+            )
 
     for s0, s1 in segs:
         if s1 - s0 < 2:
@@ -198,10 +204,11 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
     def seg_packed(ai, gid_j):
         if ai not in cj_cache:
             A0, A1 = segs[ai]
-            cj_cache[ai] = pack.pack_columns(
-                np.ascontiguousarray(cd.packed[A0:A1]),
-                cp.cols_for(gid_j), cd.n_haplotypes,
-            )
+            with span("scanx.repack", stats, "repack_s"):
+                cj_cache[ai] = pack.pack_columns(
+                    np.ascontiguousarray(cd.packed[A0:A1]),
+                    cp.cols_for(gid_j), cd.n_haplotypes,
+                )
         return cj_cache[ai]
 
     def rect_jobs():
@@ -234,12 +241,13 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
                 b1_max = max(b1_max, b1)
             for r0 in range(B0, b1_max, block):
                 r1_max = min(r0 + block, b1_max)
-                Ci = np.unpackbits(
-                    pack.pack_columns(
+                with span("scanx.repack", stats, "repack_s"):
+                    Ci_packed = pack.pack_columns(
                         np.ascontiguousarray(cd.packed[r0:r1_max]),
                         cp.cols_for(gid_i), cd.n_haplotypes,
-                    ), axis=1, count=n_i,
-                ).astype(np.int8)
+                    )
+                Ci = np.unpackbits(Ci_packed, axis=1,
+                                   count=n_i).astype(np.int8)
                 c1_rows_full = Ci.sum(axis=1, dtype=np.int64)
                 for (ai, gid_j, n_j, a0, a1, b1, A0) in ai_infos:
                     if r0 >= b1:
@@ -270,10 +278,12 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
 
     def finish_rect(job):
         r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows, c1_cols, fin = job
-        c_ab, _, _ = fin()
-        ex = exact_ld_from_counts(
-            c_ab, c1_rows, c1_cols, m, len1=n_i, len2=n_j,
-        )
+        with span("engine.wait", rect_stats, "rect_wait_s"):
+            c_ab, _, _ = fin()
+        with span("scanx.rect_exact", rect_stats, "rect_exact_s"):
+            ex = exact_ld_from_counts(
+                c_ab, c1_rows, c1_cols, m, len1=n_i, len2=n_j,
+            )
         meas = (
             ex.r_square
             if config.ld_measure == "r_square"
@@ -307,17 +317,16 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
     # two-slot drive: pulling job k+1 issues it (and does its host
     # repacking) while job k's finish runs; dispatch_s happens under the
     # device's work
-    rect_stats = {"rect_dispatch_s": 0.0, "rect_finish_s": 0.0, "rects": 0}
+    rect_stats = {"rect_dispatch_s": 0.0, "rect_finish_s": 0.0,
+                  "rect_wait_s": 0.0, "rect_exact_s": 0.0, "rects": 0}
     pending = None
     it = rect_jobs()
     while True:
-        t0 = time.perf_counter()
-        job = next(it, None)
-        rect_stats["rect_dispatch_s"] += time.perf_counter() - t0
+        with span("scanx.rect_dispatch", rect_stats, "rect_dispatch_s"):
+            job = next(it, None)
         if pending is not None:
-            t0 = time.perf_counter()
-            finish_rect(pending)
-            rect_stats["rect_finish_s"] += time.perf_counter() - t0
+            with span("scanx.rect_finish", rect_stats, "rect_finish_s"):
+                finish_rect(pending)
             rect_stats["rects"] += 1
         if job is None:
             break
@@ -331,50 +340,51 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
         )
     stats.update(rect_stats, segments=len(segs))
 
-    if n_proc > 1:
-        # merge the strided rectangle hits (every process joins the
-        # collective, hit-less ones included, with the same dtypes); the
-        # segment-scan parts above are already identical on every process
-        from ld_tools_tpu_torch.ops.ld_stream import _allgather_hits
+    with span("scanx.merge", stats, "merge_s"):
+        if n_proc > 1:
+            # merge the strided rectangle hits (every process joins the
+            # collective, hit-less ones included, with the same dtypes); the
+            # segment-scan parts above are already identical on every process
+            from ld_tools_tpu_torch.ops.ld_stream import _allgather_hits
 
-        names = ("i", "j", "r2", "dp", "r2_iz", "dp_iz")
-        if rect_parts:
-            arrs = {
-                name: np.concatenate([p[k] for p in rect_parts])
-                for k, name in enumerate(names)
-            }
+            names = ("i", "j", "r2", "dp", "r2_iz", "dp_iz")
+            if rect_parts:
+                arrs = {
+                    name: np.concatenate([p[k] for p in rect_parts])
+                    for k, name in enumerate(names)
+                }
+            else:
+                arrs = {
+                    "i": np.zeros(0, np.int64), "j": np.zeros(0, np.int64),
+                    "r2": np.zeros(0), "dp": np.zeros(0),
+                    "r2_iz": np.zeros(0, bool), "dp_iz": np.zeros(0, bool),
+                }
+            g = _allgather_hits(arrs, ("r2", "dp", "r2_iz", "dp_iz"))
+            parts.append((g["i"], g["j"], g["r2"], g["dp"], g["r2_iz"],
+                          g["dp_iz"]))
         else:
-            arrs = {
-                "i": np.zeros(0, np.int64), "j": np.zeros(0, np.int64),
-                "r2": np.zeros(0), "dp": np.zeros(0),
-                "r2_iz": np.zeros(0, bool), "dp_iz": np.zeros(0, bool),
-            }
-        g = _allgather_hits(arrs, ("r2", "dp", "r2_iz", "dp_iz"))
-        parts.append((g["i"], g["j"], g["r2"], g["dp"], g["r2_iz"],
-                      g["dp_iz"]))
-    else:
-        parts.extend(rect_parts)
+            parts.extend(rect_parts)
 
-    if parts:
-        i = np.concatenate([p[0] for p in parts])
-        j = np.concatenate([p[1] for p in parts])
-        r2 = np.concatenate([p[2] for p in parts])
-        dp = np.concatenate([p[3] for p in parts])
-        r2_iz = np.concatenate([p[4] for p in parts])
-        dp_iz = np.concatenate([p[5] for p in parts])
-        order = np.lexsort((j, i))
+        if parts:
+            i = np.concatenate([p[0] for p in parts])
+            j = np.concatenate([p[1] for p in parts])
+            r2 = np.concatenate([p[2] for p in parts])
+            dp = np.concatenate([p[3] for p in parts])
+            r2_iz = np.concatenate([p[4] for p in parts])
+            dp_iz = np.concatenate([p[5] for p in parts])
+            order = np.lexsort((j, i))
+            return ScanHits(
+                i=i[order], j=j[order], r_square=r2[order], d_prime=dp[order],
+                r_square_is_int_zero=r2_iz[order],
+                d_prime_is_int_zero=dp_iz[order], exact=True, stats=stats,
+            )
+        z = np.zeros(0)
         return ScanHits(
-            i=i[order], j=j[order], r_square=r2[order], d_prime=dp[order],
-            r_square_is_int_zero=r2_iz[order],
-            d_prime_is_int_zero=dp_iz[order], exact=True, stats=stats,
+            i=np.zeros(0, np.int64), j=np.zeros(0, np.int64),
+            r_square=z, d_prime=z,
+            r_square_is_int_zero=np.zeros(0, bool),
+            d_prime_is_int_zero=np.zeros(0, bool), exact=True, stats=stats,
         )
-    z = np.zeros(0)
-    return ScanHits(
-        i=np.zeros(0, np.int64), j=np.zeros(0, np.int64),
-        r_square=z, d_prime=z,
-        r_square_is_int_zero=np.zeros(0, bool),
-        d_prime_is_int_zero=np.zeros(0, bool), exact=True, stats=stats,
-    )
 
 
 def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
@@ -394,96 +404,110 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
     from ld_tools_tpu_torch.ops.ld_stream import stream_threshold_scan
 
     t_start = time.time()
-    cd = data.store().chrom(chrom)
-    cp = cd.cohort_ploidy(data.sample_names)
-    chrom_groups = (
-        np.zeros(1, dtype=np.int16)
-        if cp.trivial
-        else np.unique(cd.pgroup)
-    )
-    if chrom_groups.size > 1:
-        hits = _scan_mixed_chromosome(data, cd, cp, config,
-                                      multiprocess=multiprocess)
-    else:
-        # single ploidy profile: the scan consumes the profile's live bit
-        # columns directly (full-diploid-cohort runs are zero-copy;
-        # subsets and haploid profiles repack their bit columns once)
-        gid = int(chrom_groups[0]) if chrom_groups.size else 0
-        cols = cp.cols_for(gid)
-        if cols.size == cd.n_haplotypes and np.array_equal(
-            cols, np.arange(cd.n_haplotypes)
-        ):
-            gp, n_hap = cd.packed, cd.n_haplotypes
+    stats = {}
+    with span("scan.chromosome", stats, SPANNED):
+        with span("scan.open", stats, "open_s"):
+            cd = data.store().chrom(chrom)
+            cp = cd.cohort_ploidy(data.sample_names)
+            chrom_groups = (
+                np.zeros(1, dtype=np.int16)
+                if cp.trivial
+                else np.unique(cd.pgroup)
+            )
+            mixed = chrom_groups.size > 1
+            if not mixed:
+                # single ploidy profile: the scan consumes the profile's
+                # live bit columns directly (full-diploid-cohort runs are
+                # zero-copy; subsets and haploid profiles repack their bit
+                # columns once)
+                gid = int(chrom_groups[0]) if chrom_groups.size else 0
+                cols = cp.cols_for(gid)
+                if cols.size == cd.n_haplotypes and np.array_equal(
+                    cols, np.arange(cd.n_haplotypes)
+                ):
+                    gp, n_hap = cd.packed, cd.n_haplotypes
+                else:
+                    gp = pack.pack_columns(cd.packed, cols, cd.n_haplotypes)
+                    n_hap = cols.size
+        if mixed:
+            hits = _scan_mixed_chromosome(data, cd, cp, config,
+                                          multiprocess=multiprocess)
         else:
-            gp = pack.pack_columns(cd.packed, cols, cd.n_haplotypes)
-            n_hap = cols.size
+            log.info(
+                "scanning chr%s: %d variants x %d haplotypes (bitpacked), "
+                "%s >= %s%s on %s",
+                chrom, gp.shape[0], n_hap, config.ld_measure,
+                config.ld_low_thres,
+                f", dist <= {config.max_dist}" if config.max_dist else "",
+                config.device,
+            )
+            hits = stream_threshold_scan(
+                G_packed=gp,
+                n_haplotypes=n_hap,
+                pos=cd.pos,
+                measure=config.ld_measure,
+                thres=config.ld_low_thres,
+                max_dist=config.max_dist,
+                exact=True,
+                checkpoint_dir=config.checkpoint_dir,
+                mesh=config.mesh(),
+                multiprocess=multiprocess,
+                resident_key=_resident_key(data, cd),
+                device=config.device,
+            )
+        stats.update(hits.stats or {})
+        if not write:
+            return ScanReport(chrom=chrom, path=None,
+                              n_hits=int(len(hits.i)), stats=stats)
+        with span("scan.write", stats, "write_s"):
+            makedirs(config.trg_dir_path)
+            name = (
+                f"ld_scan_chr{chrom}_{config.ld_measure[0]}_"
+                f"{config.ld_low_thres}.tsv"
+            )
+            path = os.path.join(config.trg_dir_path, name)
+            meta_keys = ["chr", "gends", "pops", f"{config.ld_measure}_thres",
+                         "max_dist"]
+            meta_vals = [chrom, data.gend_names, data.pop_names,
+                         config.ld_low_thres, config.max_dist]
+            rsid = cd.rsid
+            pos = cd.pos
+            with span("scan.format", stats, "format_s"):
+                r2_s = format_rounded(hits.r_square,
+                                      hits.r_square_is_int_zero)
+                dp_s = format_rounded(hits.d_prime, hits.d_prime_is_int_zero)
+            with span("scan.emit", stats, "emit_s"):
+                # column-wise assembly (the .tolist() conversions and the
+                # joins run at C speed): chromosome-scale scans emit
+                # millions of hit lines
+                ia = hits.i.astype(np.int64)
+                jb = hits.j.astype(np.int64)
+                pa = pos[ia].astype(np.int64)
+                pb = pos[jb].astype(np.int64)
+                rows = zip(
+                    pa.tolist(), np.asarray(rsid)[ia].tolist(),
+                    pb.tolist(), np.asarray(rsid)[jb].tolist(),
+                    (pa - pb).tolist(), r2_s.tolist(), dp_s.tolist(),
+                )
+                with open(path, "w") as fh:
+                    fh.write(ucsc_header_line(meta_keys, meta_vals) + "\n")
+                    fh.write("#hg38_pos_1\trsID_1\thg38_pos_2\trsID_2\tdist"
+                             "\tr2\tD'\n")
+                    for pa_k, ra, pb_k, rb, d, r2k, dpk in rows:
+                        fh.write(f"{pa_k}\t{ra}\t{pb_k}\t{rb}\t{d}\t{r2k}"
+                                 f"\t{dpk}\n")
+        stats["tsv_bytes"] = os.path.getsize(path)
+        n_pairs = cd.n_variants * (cd.n_variants - 1) / 2
+        elapsed = time.time() - t_start
         log.info(
-            "scanning chr%s: %d variants x %d haplotypes (bitpacked), "
-            "%s >= %s%s on %s",
-            chrom, gp.shape[0], n_hap, config.ld_measure,
-            config.ld_low_thres,
-            f", dist <= {config.max_dist}" if config.max_dist else "",
-            config.device,
+            "chr%s: %d/%d pairs above threshold (%.1fs, %.2f Gpairs/s; open "
+            "%.2fs, write %.2fs: format %.2fs, emit %.2fs) -> %s",
+            chrom, len(hits.i), int(n_pairs), elapsed,
+            n_pairs / max(elapsed, 1e-9) / 1e9, stats["open_s"],
+            stats["write_s"], stats["format_s"], stats["emit_s"], path,
         )
-        hits = stream_threshold_scan(
-            G_packed=gp,
-            n_haplotypes=n_hap,
-            pos=cd.pos,
-            measure=config.ld_measure,
-            thres=config.ld_low_thres,
-            max_dist=config.max_dist,
-            exact=True,
-            checkpoint_dir=config.checkpoint_dir,
-            mesh=config.mesh(),
-            multiprocess=multiprocess,
-            resident_key=_resident_key(data, cd),
-            device=config.device,
-        )
-    stats = dict(hits.stats or {})
-    if not write:
-        return ScanReport(chrom=chrom, path=None, n_hits=int(len(hits.i)),
+        return ScanReport(chrom=chrom, path=path, n_hits=int(len(hits.i)),
                           stats=stats)
-    t_write = time.perf_counter()
-    makedirs(config.trg_dir_path)
-    name = (
-        f"ld_scan_chr{chrom}_{config.ld_measure[0]}_"
-        f"{config.ld_low_thres}.tsv"
-    )
-    path = os.path.join(config.trg_dir_path, name)
-    meta_keys = ["chr", "gends", "pops", f"{config.ld_measure}_thres",
-                 "max_dist"]
-    meta_vals = [chrom, data.gend_names, data.pop_names,
-                 config.ld_low_thres, config.max_dist]
-    rsid = cd.rsid
-    pos = cd.pos
-    r2_s = format_rounded(hits.r_square, hits.r_square_is_int_zero)
-    dp_s = format_rounded(hits.d_prime, hits.d_prime_is_int_zero)
-    # column-wise assembly (the .tolist() conversions and the joins run at
-    # C speed): chromosome-scale scans emit millions of hit lines
-    ia = hits.i.astype(np.int64)
-    jb = hits.j.astype(np.int64)
-    pa = pos[ia].astype(np.int64)
-    pb = pos[jb].astype(np.int64)
-    rows = zip(
-        pa.tolist(), np.asarray(rsid)[ia].tolist(),
-        pb.tolist(), np.asarray(rsid)[jb].tolist(),
-        (pa - pb).tolist(), r2_s.tolist(), dp_s.tolist(),
-    )
-    with open(path, "w") as fh:
-        fh.write(ucsc_header_line(meta_keys, meta_vals) + "\n")
-        fh.write("#hg38_pos_1\trsID_1\thg38_pos_2\trsID_2\tdist\tr2\tD'\n")
-        for pa_k, ra, pb_k, rb, d, r2k, dpk in rows:
-            fh.write(f"{pa_k}\t{ra}\t{pb_k}\t{rb}\t{d}\t{r2k}\t{dpk}\n")
-    stats["write_s"] = time.perf_counter() - t_write
-    n_pairs = cd.n_variants * (cd.n_variants - 1) / 2
-    elapsed = time.time() - t_start
-    log.info(
-        "chr%s: %d/%d pairs above threshold (%.1fs, %.2f Gpairs/s) -> %s",
-        chrom, len(hits.i), int(n_pairs), elapsed,
-        n_pairs / max(elapsed, 1e-9) / 1e9, path,
-    )
-    return ScanReport(chrom=chrom, path=path, n_hits=int(len(hits.i)),
-                      stats=stats)
 
 
 def run(args) -> list:

@@ -23,7 +23,6 @@ from __future__ import annotations
 import dataclasses
 import os
 import threading
-import time
 
 import numpy as np
 
@@ -34,7 +33,7 @@ from ld_tools_tpu_torch.ops.engine import exact_all_pairs, mixed_pair_ld
 from ld_tools_tpu_torch.tools.common import DataConfig, variant_annotations
 from ld_tools_tpu_torch.utils.device import engine_device, resolve_device
 from ld_tools_tpu_torch.utils.logging import get_logger
-from ld_tools_tpu_torch.utils.profiling import maybe_trace
+from ld_tools_tpu_torch.utils.profiling import maybe_trace, span
 
 log = get_logger("tools.triangle")
 
@@ -229,76 +228,78 @@ class TriangleRunner:
             self._add(phases)
             return True
 
-        t0 = time.perf_counter()
-        exact = (
-            mixed_pair_ld(cd, cp, mixed_ctx[2], mixed_ctx[2], cfg.device)
-            if mixed
-            else exact_all_pairs(G, device=cfg.device)
-        )
-        t1 = time.perf_counter()
-        phases["finish_s"] = t1 - t0
-        measure_vals = (
-            exact.r_square_rounded()
-            if cfg.ld_measure == "r_square"
-            else exact.d_prime_rounded()
-        )
-
-        need_info = cfg.matrix_type in ("heatmap", "both")
-        ld_two_dim = [[0 for _ in range(vars_quan)] for _ in range(vars_quan)]
-        info_two_dim = (
-            self._hovertext_matrix(exact, cd, rows, rs_ids_srtd, poss_srtd)
-            if need_info
-            else None
-        )
-
-        for row_index in range(vars_quan):
-            row_vals = measure_vals[row_index]
-            ld_row = ld_two_dim[row_index]
-            for col_index in range(row_index):
-                val = row_vals[col_index]
-                if cfg.ld_low_thres is not None and val < cfg.ld_low_thres:
-                    continue  # sub-threshold cells stay 0 but keep hovertext
-                ld_row[col_index] = val
-        t2 = time.perf_counter()
-        phases["encode_s"] = t2 - t1
-
-        trg_file_base = f"{src_file_base}_chr{chrom}_{cfg.ld_measure[0]}"
-        if cfg.matrix_type in ("heatmap", "both"):
-            title = _title_text(cfg, self.data, chrom)
-            figure = heatmap_io.build_figure(
-                ld_two_dim,
-                info_two_dim,
-                rs_ids_srtd,
-                disp_letters=cfg.disp_letters,
-                color_pal=cfg.color_pal,
-                font_size=cfg.font_size,
-                square_shape=cfg.square_shape,
-                title_text=title,
-                footer_text=None if cfg.dont_disp_footer else FOOTER_TEXT,
+        with span("triangle.finish", phases, "finish_s"):
+            exact = (
+                mixed_pair_ld(cd, cp, mixed_ctx[2], mixed_ctx[2], cfg.device)
+                if mixed
+                else exact_all_pairs(G, device=cfg.device)
             )
-            if cfg.heatmap_json:
-                heatmap_io.write_json(
-                    os.path.join(trg_dir_path, trg_file_base + ".json"), figure
+        with span("triangle.encode", phases, "encode_s"):
+            measure_vals = (
+                exact.r_square_rounded()
+                if cfg.ld_measure == "r_square"
+                else exact.d_prime_rounded()
+            )
+
+            need_info = cfg.matrix_type in ("heatmap", "both")
+            ld_two_dim = [[0 for _ in range(vars_quan)]
+                          for _ in range(vars_quan)]
+            info_two_dim = (
+                self._hovertext_matrix(exact, cd, rows, rs_ids_srtd,
+                                       poss_srtd)
+                if need_info
+                else None
+            )
+
+            for row_index in range(vars_quan):
+                row_vals = measure_vals[row_index]
+                ld_row = ld_two_dim[row_index]
+                for col_index in range(row_index):
+                    val = row_vals[col_index]
+                    if (cfg.ld_low_thres is not None
+                            and val < cfg.ld_low_thres):
+                        # sub-threshold cells stay 0 but keep hovertext
+                        continue
+                    ld_row[col_index] = val
+
+        with span("triangle.figure", phases, "figure_s"):
+            trg_file_base = (f"{src_file_base}_chr{chrom}_"
+                             f"{cfg.ld_measure[0]}")
+            if cfg.matrix_type in ("heatmap", "both"):
+                title = _title_text(cfg, self.data, chrom)
+                figure = heatmap_io.build_figure(
+                    ld_two_dim,
+                    info_two_dim,
+                    rs_ids_srtd,
+                    disp_letters=cfg.disp_letters,
+                    color_pal=cfg.color_pal,
+                    font_size=cfg.font_size,
+                    square_shape=cfg.square_shape,
+                    title_text=title,
+                    footer_text=None if cfg.dont_disp_footer else FOOTER_TEXT,
                 )
-            heatmap_io.write_html(
-                os.path.join(trg_dir_path, trg_file_base + ".html"),
-                figure,
-                cfg.disp_letters,
-            )
-        t3 = time.perf_counter()
-        phases["figure_s"] = t3 - t2
-        if cfg.matrix_type in ("table", "both"):
-            write_triangle_tsv(
-                os.path.join(trg_dir_path, trg_file_base + ".tsv"),
-                cfg.ld_measure,
-                chrom,
-                self.data.pop_names,
-                self.data.gend_names,
-                rs_ids_srtd,
-                poss_srtd,
-                ld_two_dim,
-            )
-        phases["write_s"] = time.perf_counter() - t3
+                if cfg.heatmap_json:
+                    heatmap_io.write_json(
+                        os.path.join(trg_dir_path, trg_file_base + ".json"),
+                        figure,
+                    )
+                heatmap_io.write_html(
+                    os.path.join(trg_dir_path, trg_file_base + ".html"),
+                    figure,
+                    cfg.disp_letters,
+                )
+        with span("triangle.write", phases, "write_s"):
+            if cfg.matrix_type in ("table", "both"):
+                write_triangle_tsv(
+                    os.path.join(trg_dir_path, trg_file_base + ".tsv"),
+                    cfg.ld_measure,
+                    chrom,
+                    self.data.pop_names,
+                    self.data.gend_names,
+                    rs_ids_srtd,
+                    poss_srtd,
+                    ld_two_dim,
+                )
         self._add(phases)
         return True
 
@@ -432,8 +433,6 @@ def _write_table_streamed(
     on ``self.config.device``.
     """
     import os
-    import time as _time
-
     import numpy as np
 
     from ld_tools_tpu_torch.ops.engine import (
@@ -453,10 +452,8 @@ def _write_table_streamed(
         ps.setdefault(key, 0.0)
 
     def wait(fin):
-        _t0 = _time.perf_counter()
-        out = fin()
-        ps["count_wait_s"] += _time.perf_counter() - _t0
-        return out
+        with span("engine.wait", ps, "count_wait_s"):
+            return fin()
 
     n = len(rs_ids_srtd)
     trg_file_base = f"{src_file_base}_chr{chrom}_{cfg.ld_measure[0]}"
@@ -516,9 +513,8 @@ def _write_table_streamed(
     # two-slot pipeline: block k+1's counts are issued (on the card, on a
     # side stream of the job) while block k's exact finish + cell
     # formatting + write run on the host
-    _t0 = _time.perf_counter()
-    pending = dispatch(0, min(row_block, n))
-    ps["dispatch_s"] += _time.perf_counter() - _t0
+    with span("triangle.dispatch", ps, "dispatch_s"):
+        pending = dispatch(0, min(row_block, n))
     from ld_tools_tpu_torch.io.writers import write_triangle_header
 
     with open(path, "w") as fh:
@@ -534,27 +530,24 @@ def _write_table_streamed(
             if bi + 1 < len(starts):
                 nr0 = starts[bi + 1]
                 nr1 = min(nr0 + row_block, n)
-                _t0 = _time.perf_counter()
-                pending = dispatch(nr0, nr1)
-                ps["dispatch_s"] += _time.perf_counter() - _t0
-            _t0 = _time.perf_counter()
-            rounded, int_zero = finish(fin)
-            ps["finish_s"] += _time.perf_counter() - _t0
-            _t0 = _time.perf_counter()
-            for k in range(r1 - r0):
-                r = r0 + k
-                cells = format_rounded(
-                    rounded[k, :r], int_zero[k, :r], assume_rounded=True
-                )
-                if cfg.ld_low_thres is not None:
-                    cells = np.where(
-                        rounded[k, :r] >= cfg.ld_low_thres, cells, "0"
+                with span("triangle.dispatch", ps, "dispatch_s"):
+                    pending = dispatch(nr0, nr1)
+            with span("triangle.finish", ps, "finish_s"):
+                rounded, int_zero = finish(fin)
+            with span("triangle.write", ps, "write_s"):
+                for k in range(r1 - r0):
+                    r = r0 + k
+                    cells = format_rounded(
+                        rounded[k, :r], int_zero[k, :r], assume_rounded=True
                     )
-                fh.write(
-                    rs_ids_srtd[r] + "\t" + poss_str[r] + "\t"
-                    + "\t".join(cells.tolist() + ["0"] * (n - r)) + "\n"
-                )
-            ps["write_s"] += _time.perf_counter() - _t0
+                    if cfg.ld_low_thres is not None:
+                        cells = np.where(
+                            rounded[k, :r] >= cfg.ld_low_thres, cells, "0"
+                        )
+                    fh.write(
+                        rs_ids_srtd[r] + "\t" + poss_str[r] + "\t"
+                        + "\t".join(cells.tolist() + ["0"] * (n - r)) + "\n"
+                    )
 
 
 TriangleRunner._hovertext_matrix = _hovertext_matrix
@@ -578,8 +571,6 @@ def _build_heatmap_columnar(
     dispatch_s, count_wait_s (part of finish_s), finish_s, encode_s,
     figure_s and, with ``also_table``, write_s.
     """
-    import time as _time
-
     import numpy as np
 
     from ld_tools_tpu_torch.ops.engine import (
@@ -599,10 +590,8 @@ def _build_heatmap_columnar(
         ps.setdefault(key, 0.0)
 
     def wait(fin):
-        _t0 = _time.perf_counter()
-        out = fin()
-        ps["count_wait_s"] += _time.perf_counter() - _t0
-        return out
+        with span("engine.wait", ps, "count_wait_s"):
+            return fin()
 
     n = len(rs_ids_srtd)
     mixed = mixed_ctx is not None
@@ -680,48 +669,45 @@ def _build_heatmap_columnar(
             table_fh, cfg.ld_measure, chrom, self.data.pop_names,
             self.data.gend_names, rs_ids_srtd, poss_str,
         )
-    _t0 = _time.perf_counter()
-    pending = dispatch(0, min(row_block, n))
-    ps["dispatch_s"] += _time.perf_counter() - _t0
+    with span("triangle.dispatch", ps, "dispatch_s"):
+        pending = dispatch(0, min(row_block, n))
     for bi, r0 in enumerate(starts):
         r1 = min(r0 + row_block, n)
         fin = pending
         if bi + 1 < len(starts):
-            _t0 = _time.perf_counter()
-            pending = dispatch(starts[bi + 1], min(starts[bi + 1] + row_block, n))
-            ps["dispatch_s"] += _time.perf_counter() - _t0
-        _t0 = _time.perf_counter()
-        r2r, r2iz, dpr, dpiz, p1r, p2r = finish(fin)
-        ps["finish_s"] += _time.perf_counter() - _t0
-        _t0 = _time.perf_counter()
+            with span("triangle.dispatch", ps, "dispatch_s"):
+                pending = dispatch(starts[bi + 1],
+                                   min(starts[bi + 1] + row_block, n))
+        with span("triangle.finish", ps, "finish_s"):
+            r2r, r2iz, dpr, dpiz, p1r, p2r = finish(fin)
         if table_fh is not None:
-            mr = r2r if cfg.ld_measure == "r_square" else dpr
-            mz = r2iz if cfg.ld_measure == "r_square" else dpiz
-            for k in range(r1 - r0):
-                r = r0 + k
-                cells = format_rounded(mr[k, :r], mz[k, :r],
-                                       assume_rounded=True)
-                if cfg.ld_low_thres is not None:
-                    cells = np.where(
-                        mr[k, :r] >= cfg.ld_low_thres, cells, "0"
+            with span("triangle.write", ps, "write_s"):
+                mr = r2r if cfg.ld_measure == "r_square" else dpr
+                mz = r2iz if cfg.ld_measure == "r_square" else dpiz
+                for k in range(r1 - r0):
+                    r = r0 + k
+                    cells = format_rounded(mr[k, :r], mz[k, :r],
+                                           assume_rounded=True)
+                    if cfg.ld_low_thres is not None:
+                        cells = np.where(
+                            mr[k, :r] >= cfg.ld_low_thres, cells, "0"
+                        )
+                    table_fh.write(
+                        rs_ids_srtd[r] + "\t" + poss_str[r] + "\t"
+                        + "\t".join(cells.tolist() + ["0"] * (n - r)) + "\n"
                     )
-                table_fh.write(
-                    rs_ids_srtd[r] + "\t" + poss_str[r] + "\t"
-                    + "\t".join(cells.tolist() + ["0"] * (n - r)) + "\n"
-                )
-            ps["write_s"] += _time.perf_counter() - _t0
-            _t0 = _time.perf_counter()
-        r2_parts.append(heatmap_io.encode_q_rows(
-            r2r, r2iz, r0, r1, qdtype=qdtype,
-        ))
-        dp_parts.append(heatmap_io.encode_q_rows(
-            dpr, dpiz, r0, r1, qdtype=qdtype,
-        ))
-        if overview:
-            cm = r2r if cfg.ld_measure == "r_square" else dpr
-            cz = r2iz if cfg.ld_measure == "r_square" else dpiz
-            heatmap_io.pool_rows_composite(pooled, cm, cz, r0, r1, pool_f)
-        ps["encode_s"] += _time.perf_counter() - _t0
+        with span("triangle.encode", ps, "encode_s"):
+            r2_parts.append(heatmap_io.encode_q_rows(
+                r2r, r2iz, r0, r1, qdtype=qdtype,
+            ))
+            dp_parts.append(heatmap_io.encode_q_rows(
+                dpr, dpiz, r0, r1, qdtype=qdtype,
+            ))
+            if overview:
+                cm = r2r if cfg.ld_measure == "r_square" else dpr
+                cz = r2iz if cfg.ld_measure == "r_square" else dpiz
+                heatmap_io.pool_rows_composite(pooled, cm, cz, r0, r1,
+                                               pool_f)
         if mixed:
             if no_iz is None or no_iz.shape[0] < r1 - r0:
                 no_iz = np.zeros((r1 - r0, n), dtype=bool)
@@ -732,69 +718,68 @@ def _build_heatmap_columnar(
                 p2r, no_iz, r0, r1, qdtype=qdtype
             ))
 
-    _t0 = _time.perf_counter()
-    ann = [variant_annotations(cd, r) for r in rows]
-    freq_q = None
-    if not mixed:
-        c1 = G.astype(np.int64).sum(axis=1)
-        freq_q = np.rint(
-            round4(c1 / float(G.shape[1])) * 1e4
-        ).astype(np.int64)
-    title = _title_text(cfg, self.data, chrom)
-    if table_fh is not None:
-        table_fh.close()
-    r2_all = b"".join(r2_parts)
-    dp_all = b"".join(dp_parts)
-    if cfg.heatmap_json or not overview:
-        # the full-resolution columnar figure: the HTML payload below
-        # _OVERVIEW_MIN variants, and always the -j JSON debug dump
-        figure = heatmap_io.build_figure_columnar(
-            n=n,
-            rs_ids=rs_ids_srtd,
-            positions=poss_srtd,
-            alleles=[a[0] for a in ann],
-            types=[a[1] for a in ann],
-            measure=cfg.ld_measure,
-            thres=cfg.ld_low_thres,
-            r2_q=r2_all,
-            dp_q=dp_all,
-            color_pal=cfg.color_pal,
-            title_text=title,
-            footer_text=None if cfg.dont_disp_footer else FOOTER_TEXT,
-            square_shape=cfg.square_shape,
-            freq_q=freq_q,
-            freq1_q=b"".join(f1_parts) if mixed else None,
-            freq2_q=b"".join(f2_parts) if mixed else None,
-            qdtype=qdtype,
-        )
-        if cfg.heatmap_json:
-            heatmap_io.write_json(
-                os.path.join(trg_dir_path, trg_file_base + ".json"), figure
+    with span("triangle.figure", ps, "figure_s"):
+        ann = [variant_annotations(cd, r) for r in rows]
+        freq_q = None
+        if not mixed:
+            c1 = G.astype(np.int64).sum(axis=1)
+            freq_q = np.rint(
+                round4(c1 / float(G.shape[1])) * 1e4
+            ).astype(np.int64)
+        title = _title_text(cfg, self.data, chrom)
+        if table_fh is not None:
+            table_fh.close()
+        r2_all = b"".join(r2_parts)
+        dp_all = b"".join(dp_parts)
+        if cfg.heatmap_json or not overview:
+            # the full-resolution columnar figure: the HTML payload below
+            # _OVERVIEW_MIN variants, and always the -j JSON debug dump
+            figure = heatmap_io.build_figure_columnar(
+                n=n,
+                rs_ids=rs_ids_srtd,
+                positions=poss_srtd,
+                alleles=[a[0] for a in ann],
+                types=[a[1] for a in ann],
+                measure=cfg.ld_measure,
+                thres=cfg.ld_low_thres,
+                r2_q=r2_all,
+                dp_q=dp_all,
+                color_pal=cfg.color_pal,
+                title_text=title,
+                footer_text=None if cfg.dont_disp_footer else FOOTER_TEXT,
+                square_shape=cfg.square_shape,
+                freq_q=freq_q,
+                freq1_q=b"".join(f1_parts) if mixed else None,
+                freq2_q=b"".join(f2_parts) if mixed else None,
+                qdtype=qdtype,
             )
-    if overview:
-        figure = heatmap_io.build_figure_overview(
-            n=n,
-            rs_ids=rs_ids_srtd,
-            positions=poss_srtd,
-            alleles=[a[0] for a in ann],
-            types=[a[1] for a in ann],
-            measure=cfg.ld_measure,
-            thres=cfg.ld_low_thres,
-            pooled=pooled,
-            r2_q=r2_all,
-            dp_q=dp_all,
-            color_pal=cfg.color_pal,
-            title_text=title,
-            footer_text=None if cfg.dont_disp_footer else FOOTER_TEXT,
-            square_shape=cfg.square_shape,
-            freq_q=freq_q,
+            if cfg.heatmap_json:
+                heatmap_io.write_json(
+                    os.path.join(trg_dir_path, trg_file_base + ".json"), figure
+                )
+        if overview:
+            figure = heatmap_io.build_figure_overview(
+                n=n,
+                rs_ids=rs_ids_srtd,
+                positions=poss_srtd,
+                alleles=[a[0] for a in ann],
+                types=[a[1] for a in ann],
+                measure=cfg.ld_measure,
+                thres=cfg.ld_low_thres,
+                pooled=pooled,
+                r2_q=r2_all,
+                dp_q=dp_all,
+                color_pal=cfg.color_pal,
+                title_text=title,
+                footer_text=None if cfg.dont_disp_footer else FOOTER_TEXT,
+                square_shape=cfg.square_shape,
+                freq_q=freq_q,
+            )
+        heatmap_io.write_html(
+            os.path.join(trg_dir_path, trg_file_base + ".html"),
+            figure,
+            cfg.disp_letters,
         )
-    heatmap_io.write_html(
-        os.path.join(trg_dir_path, trg_file_base + ".html"),
-        figure,
-        cfg.disp_letters,
-    )
-    ps["figure_s"] += _time.perf_counter() - _t0
 
 
 TriangleRunner._build_heatmap_columnar = _build_heatmap_columnar

@@ -4,6 +4,8 @@ ld_tools_tpu/utils/profiling.py.
 - ``CHIP_PEAKS`` / ``detect_chip``: the card's published peaks, by name.
   An unknown card, or no card, raises: no peak is ever assumed.
 - ``trace(log_dir)`` / ``maybe_trace()``: ``torch.profiler`` traces.
+- ``span(name, stats, key)``: the program's phase timer, which also names
+  the phase in a ``torch.profiler`` trace while one is recording.
 - ``Roofline``: the analytic model of an all-pairs sweep (operations,
   bytes) against the card's peaks.
 - ``sweep_seconds``: per-sweep time by differencing two sweep counts
@@ -16,6 +18,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import os
+import threading
 import time
 import warnings
 
@@ -73,6 +76,47 @@ def maybe_trace():
         return
     with trace(log_dir):
         yield
+
+
+# the stats key of a root span: the summed seconds of its direct children
+SPANNED = "spanned_s"
+
+_NOT_TRACED = contextlib.nullcontext()
+_OPEN = threading.local()  # each thread's open spans: [children's seconds]
+
+
+@contextlib.contextmanager
+def span(name: str, stats: dict, key: str):
+    """Time the body on the host clock and add its seconds to
+    ``stats[key]``, also when the body raises.
+
+    While a ``torch.profiler`` profile is recording, the body also runs
+    inside ``record_function(name)``, so that it shows as a
+    ``user_annotation`` event on the trace's clock beside the kernels and
+    copies (the benchmark's ``--trace 1``, ``$TPU_LD_PROFILE_DIR``);
+    otherwise no profiler code runs.  Spans nest, per thread.  A root
+    span, ``key`` :data:`SPANNED`, adds the summed seconds of its direct
+    children instead of its own: what of its body some program span
+    names.  Spans time phases, never single blocks or rows: one stays out
+    of any loop that runs more than about a hundred times a call."""
+    import torch
+
+    annotate = (torch.profiler.record_function(name)
+                if torch._C._autograd._profiler_enabled() else _NOT_TRACED)
+    stack = _OPEN.__dict__.setdefault("stack", [])
+    children = [0.0]
+    stack.append(children)
+    t0 = time.perf_counter()
+    try:
+        with annotate:
+            yield
+    finally:
+        dt = time.perf_counter() - t0
+        stack.pop()
+        if stack:
+            stack[-1][0] += dt
+        stats[key] = stats.get(key, 0.0) + (children[0] if key == SPANNED
+                                            else dt)
 
 
 @dataclasses.dataclass
