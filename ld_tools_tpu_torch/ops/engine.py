@@ -15,6 +15,10 @@ stream of the call's own, and ``finalize()`` waits on the call's own
 event: ``tools/common.map_files`` runs up to 8 tool threads, so nothing
 here keeps a stream or event shared between calls.  Every job counted on
 the card adds one to ``count_on_device.launches``.
+
+``rect_candidates_async`` is the port's own (JAX's scan finishes every
+cell of a cross-segment rectangle on the host): it tests the threshold
+on the card beside the counts and sends home only the cells that pass.
 """
 
 from __future__ import annotations
@@ -26,6 +30,7 @@ import numpy as np
 import torch
 
 from ld_tools_tpu_torch.ops.exact import ExactLD, exact_ld_from_counts
+from ld_tools_tpu_torch.ops.ld_kernels import exact_keep_mask
 from ld_tools_tpu_torch.ops.ld_math import haplotype_counts_int8
 from ld_tools_tpu_torch.utils.device import device_guard, resolve_device
 
@@ -88,33 +93,50 @@ def _pad_cols(x: np.ndarray, cols: int) -> np.ndarray:
 _HOST_COUNTS_MACS = 1 << 26
 
 
-def _pair_counts_host(a: np.ndarray, b: np.ndarray):
+def _pair_counts_host(a: np.ndarray, b: np.ndarray, sums: bool = True):
+    """The counts in host f32 BLAS, with each side's row sums unless
+    ``sums`` is False."""
     af = np.ascontiguousarray(a, dtype=np.float32)
     bf = np.ascontiguousarray(b, dtype=np.float32)
     c_ab = (af @ bf.T).astype(np.int32)
+    if not sums:
+        return c_ab
     return c_ab, af.sum(axis=1), bf.sum(axis=1)
 
 
-def _issue(dev: torch.device, work, after=None):
-    """Run ``work()`` (a tuple of device tensors out) and copy its
-    outputs home; on the card all of it on a side stream of this call
-    (after the event ``after``, where given), the copies into pinned
-    buffers.  Returns ``wait() -> tuple of host tensors``."""
-    if dev.type != "cuda":
-        out = work()
-        return lambda: out
+def _launch(dev: torch.device, work, after=None):
+    """Run ``work()`` on a side stream of this call on the card ``dev``
+    (after the event ``after``, where given) and record an event behind
+    it.  Returns (its outputs, the stream, the event)."""
     with device_guard(dev):
         stream = torch.cuda.Stream(dev)
         if after is not None:
             stream.wait_event(after)
         with torch.cuda.stream(stream):
             outs = work()
-            host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-                         for t in outs)
-            for h, t in zip(host, outs):
-                h.copy_(t, non_blocking=True)
             done = torch.cuda.Event()
             done.record(stream)
+    return outs, stream, done
+
+
+def _issue(dev: torch.device, work, after=None):
+    """Run ``work()`` (a tuple of device tensors out) and copy its
+    outputs home; on the card all of it on a side stream of this call
+    (:func:`_launch`), the copies into pinned buffers.  Returns
+    ``wait() -> tuple of host tensors``."""
+    if dev.type != "cuda":
+        out = work()
+        return lambda: out
+
+    def work_home():
+        outs = work()
+        host = tuple(torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                     for t in outs)
+        for h, t in zip(host, outs):
+            h.copy_(t, non_blocking=True)
+        return host
+
+    host, _, done = _launch(dev, work_home, after)
 
     def wait():
         done.synchronize()
@@ -182,6 +204,78 @@ def pair_counts_async(a: np.ndarray, b: np.ndarray, row_pad: int = 128,
     def finalize():
         c_ab, c1, c2 = wait()
         return c_ab.numpy()[:va, :vb], c1.numpy()[:va], c2.numpy()[:vb]
+
+    return finalize
+
+
+def rect_candidates_async(a: np.ndarray, b: np.ndarray, c1, c2, len1: int,
+                          len2: int, mask_thres: float, sel: int,
+                          pos1=None, pos2=None, max_dist=None,
+                          device="cuda"):
+    """Start one cross-ploidy rectangle's count job with its threshold
+    test WITHOUT waiting (the mixed-ploidy scan's rectangles).
+
+    ``a`` (V1, n) and ``b`` (V2, n) are the two sides' {0, 1} rows zipped
+    to the shorter list; ``c1`` (V1,) and ``c2`` (V2,) each row's alt count
+    over its own full list of ``len1`` / ``len2``.  On the job's side
+    stream: the int32 counts, :func:`ld_kernels.exact_keep_mask` at
+    ``mask_thres`` for measure ``sel`` (0 r^2, 1 D') with the two lengths
+    and, with ``max_dist``, |pos1 - pos2| <= max_dist.  Returns
+    ``finalize() -> (rows, cols, c_ab)``: the cells that pass, row-major,
+    as int64 offsets into the rectangle with their counts.
+    ``finalize()`` waits on the job's event, then compacts on the card,
+    so no count matrix travels home.  A job under ``_HOST_COUNTS_MACS``
+    counts in host BLAS and runs the same mask on CPU tensors, as does
+    the CPU device.
+    """
+    n_hap = a.shape[1]
+    if b.shape[1] != n_hap:
+        raise ValueError(
+            f"haplotype axes differ: {a.shape[1]} vs {b.shape[1]}")
+    va, vb = a.shape[0], b.shape[0]
+
+    def side(x, dev, dtype):
+        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
+            dev, non_blocking=True)
+
+    def test(cab, dev):
+        keep = exact_keep_mask(
+            cab, side(c1, dev, np.int32)[:, None],
+            side(c2, dev, np.int32)[None, :], n_hap, mask_thres, sel,
+            len1=len1, len2=len2)
+        if max_dist is not None:
+            p1 = side(pos1, dev, np.int64)
+            p2 = side(pos2, dev, np.int64)
+            keep &= (p1[:, None] - p2[None, :]).abs() <= int(max_dist)
+        return keep
+
+    def compact(cab, keep):
+        rows, cols = torch.nonzero(keep, as_tuple=True)
+        out = torch.stack((rows, cols, cab[rows, cols].to(torch.int64)))
+        out = out.cpu().numpy()
+        return out[0], out[1], out[2]
+
+    if (va * vb * max(n_hap, 1) < _HOST_COUNTS_MACS
+            and n_hap < (1 << 24)):
+        cab = torch.from_numpy(_pair_counts_host(a, b, sums=False))
+        out = compact(cab, test(cab, cab.device))
+        return lambda: out
+    dev = resolve_device(device)
+
+    def work():  # count_on_device's downcast is exact; the mask reads int32
+        cab = count_on_device(side(a, dev, np.int8),
+                              side(b, dev, np.int8)).to(torch.int32)
+        return cab, test(cab, dev)
+
+    if dev.type != "cuda":
+        out = compact(*work())
+        return lambda: out
+    (cab, keep), stream, done = _launch(dev, work)
+
+    def finalize():
+        done.synchronize()
+        with device_guard(dev), torch.cuda.stream(stream):
+            return compact(cab, keep)
 
     return finalize
 

@@ -26,7 +26,10 @@ Map to ld_pallas.py (by line):
   _fast_r2            :722   plain, divide-free r^2
   ld_band_sweep       :779   grid form of ld_band_sweep_blocks (K3) and
                              ld_band_sweep_blocks_packed (K4)
-  exact_keep_mask     :870   plain, integer-exact threshold mask
+  exact_keep_mask     :870   plain, integer-exact threshold mask (also
+                             over each side's own list length: the
+                             mixed-ploidy scan's cross-segment
+                             rectangles, the port's own)
   block_keep_mask     :980   plain, the count kernel's mask (both passes)
   ld_band_count       :1014  launches ld_band_count_kernel (K5), or hands
                              packed rows to ld_band_count_packed (K6)
@@ -313,33 +316,70 @@ def _apply_epilogue(c_ab_i32, n_hap, c1_col, c2_row, ipq1_col, ipq2_row,
     return _ld_epilogue(c, c1_col, c2_row, inv, n, want_dprime=want_dprime)
 
 
-def exact_keep_mask(cab_i32, c1_col, c2_row, n_hap, thres, sel):
+# The margin the scan's threshold tests keep under ``thres``: a test at
+# ``thres - KEEP_MARGIN`` drops no cell that rounds to >= thres (the
+# argument is in :func:`exact_keep_mask`'s docstring).
+KEEP_MARGIN = 5e-4
+
+
+def exact_keep_mask(cab_i32, c1_col, c2_row, n_hap, thres, sel, len1=None,
+                    len2=None):
     """Threshold mask straight from exact integer counts
     (ld_pallas.exact_keep_mask).
 
-    With nd = n*c_ab - c1*c2 (int32-exact for n <= 46,340):
-      r^2 >= t  <=>  nd^2 >= t * (c1*(n-c1)) * (c2*(n-c2))
-      D'  >= t  <=>  |nd| >= t * M
-    Monomorphic cells are kept only when the threshold is <= 0.
-    ``thres`` is taken as f32, like the device scalar in JAX.
+    ``c1_col`` / ``c2_row`` are each row's alt count over its own list of
+    ``len1`` / ``len2`` haplotypes (both default to ``n_hap``, one
+    ploidy); ``cab_i32`` counts alt+alt over their zip, ``n_hap`` =
+    min(len1, len2) long (the reference's lengths, ops/exact.py; the
+    mixed-ploidy scan's cross-segment rectangles pass unequal ones).
+    With nd = n*c_ab - c1*c2:
+      r^2 >= t  <=>  nd^2 >= t * (c1*(len1-c1)) * (c2*(len2-c2))
+      D'  >= t  <=>  |nd| >= t * M,  M = min(c1*(len2-c2), (len1-c1)*c2)
+                     where nd >= 0, else min(c1*c2, (len1-c1)*(len2-c2))
+    A cell whose product or M is 0 is kept only when the threshold is
+    <= 0.  ``thres`` is taken as f32, like the device scalar in JAX.  The
+    integers are int32 while max(len1, len2) <= 46,340 (every product
+    below 2^31: the expressions K5/K6 compute, which the scan's two
+    passes must agree with bit for bit), int64 past it.
+
+    Why a mask at ``thres - KEEP_MARGIN`` drops no cell the f64 finish
+    writes: the finish's p = c/n, q = (len - c)/n make r^2 = nd^2 / (A*B)
+    (A = c1*(len1-c1), B = c2*(len2-c2)) and D' = |nd| / M exactly, up to
+    a few f64 roundings (D' >= 0 in both branches).  Unequal lengths let
+    c2 exceed n, so either may lie far above 1; the test never reads them
+    as absolute values, only as the ratio of its two sides.  A cell is
+    written when round(x, 4) >= thres, so x >= thres - 5e-5 (less 1e-15
+    relative).  nd, A, B and M are exact integers; each side of the f32
+    test is rounded at most four times, so a cell fails it only where
+    x < t * (1 + 5e-7), t the f32 margin threshold (itself within 6e-8
+    of thres - 5e-4, relative): below thres - 5e-5 for any threshold up
+    to 500, whatever x.  A or B = 0 (c at 0 or at its list's length)
+    makes the finish's denominator 0: the int 0 sentinel in both
+    measures, written only when thres <= 0, which makes t <= 0.  nd = 0
+    with A*B > 0 gives D' (f64) about 0 and r^2 the int 0: written again
+    only for thres <= 0.  So the host's f64 finish decides every kept
+    cell, and the mask only drops cells that cannot round to >= thres.
     """
     dev = cab_i32.device
     n = int(n_hap)
+    l1 = n if len1 is None else int(len1)
+    l2 = n if len2 is None else int(len2)
     t = torch.tensor(float(np.float32(thres)), dtype=torch.float32,
                      device=dev)
-    c1i = c1_col.to(torch.int32)  # counts are exact in f32
-    c2i = c2_row.to(torch.int32)
-    nd = n * cab_i32 - c1i * c2i
+    idt = torch.int32 if max(l1, l2) <= 46340 else torch.int64
+    c1i = c1_col.to(idt)  # counts are exact in f32
+    c2i = c2_row.to(idt)
+    nd = n * cab_i32.to(idt) - c1i * c2i
     nd_f = nd.to(torch.float32)
     if sel == 0:
-        ab = (c1i * (n - c1i)).to(torch.float32) * (
-            c2i * (n - c2i)
+        ab = (c1i * (l1 - c1i)).to(torch.float32) * (
+            c2i * (l2 - c2i)
         ).to(torch.float32)
         keep = nd_f * nd_f >= t * ab
         keep &= (ab > 0) | (t <= 0)
     else:
-        m_pos = torch.minimum(c1i * (n - c2i), (n - c1i) * c2i)
-        m_neg = torch.minimum(c1i * c2i, (n - c1i) * (n - c2i))
+        m_pos = torch.minimum(c1i * (l2 - c2i), (l1 - c1i) * c2i)
+        m_neg = torch.minimum(c1i * c2i, (l1 - c1i) * (l2 - c2i))
         m = torch.where(nd >= 0, m_pos, m_neg).to(torch.float32)
         keep = nd_f.abs() >= t * m
         keep &= (m > 0) | (t <= 0)

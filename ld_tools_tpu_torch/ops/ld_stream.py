@@ -45,6 +45,7 @@ from ld_tools_tpu_torch.ingest import pack as _pack
 from ld_tools_tpu_torch.ops import _cuda_build
 from ld_tools_tpu_torch.ops.exact import exact_ld_elementwise, round4
 from ld_tools_tpu_torch.ops.ld_kernels import (
+    KEEP_MARGIN,
     block_keep_mask,
     ld_band_count,
     ld_band_count_sharded,
@@ -490,7 +491,7 @@ def stream_threshold_scan(
         band = min(band, _round_up(v, 256))
         chunk = min(chunk, _round_up(v, 512))
         sel = 0 if measure == "r_square" else 1
-        margin_thres = float(thres) - 5e-4
+        margin_thres = float(thres) - KEEP_MARGIN
         use_dist = max_dist is not None
         if use_dist:
             # the host block pruning assumes ascending positions, and the

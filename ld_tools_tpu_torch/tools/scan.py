@@ -105,6 +105,39 @@ def _resident_key(data: DataConfig, cd, extra=()):
     ) + tuple(extra)
 
 
+def rect_hits(cands, r0, c0, c1_rows, c1_cols, n_hap, len1, len2,
+              measure, thres, stats):
+    """The hits of one cross-segment rectangle from the engine's
+    candidates (``rect_candidates_async``: cell offsets and their counts):
+    the f64 finish with each side's own list length (span
+    ``scanx.rect_exact``, ``stats["rect_exact_s"]``), round(x, 4) with the
+    int 0 sentinels, ``>= thres``.  Returns (i, j, r2, dp, r2_iz, dp_iz)
+    in the cells' order, or None where none is kept."""
+    import numpy as np
+
+    from ld_tools_tpu_torch.ops.exact import exact_ld_elementwise, round4
+
+    rows, cols, c_ab = cands
+    if rows.size == 0:
+        return None
+    with span("scanx.rect_exact", stats, "rect_exact_s"):
+        ex = exact_ld_elementwise(c_ab, c1_rows[rows], c1_cols[cols], n_hap,
+                                  len1=len1, len2=len2)
+    if measure == "r_square":
+        meas, int_zero = ex.r_square, ex.r_square_is_int_zero
+    else:
+        meas, int_zero = ex.d_prime, ex.d_prime_is_int_zero
+    rounded = round4(meas)
+    rounded[int_zero] = 0.0
+    keep = rounded >= thres
+    if not keep.any():
+        return None
+    return ((rows[keep] + r0).astype(np.int64),
+            (cols[keep] + c0).astype(np.int64),
+            ex.r_square[keep], ex.d_prime[keep],
+            ex.r_square_is_int_zero[keep], ex.d_prime_is_int_zero[keep])
+
+
 def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
                            multiprocess: bool = False):
     """Mixed-ploidy (chrX) scan (tools/scan.py _scan_mixed_chromosome):
@@ -118,14 +151,16 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
     summed (phases, blocks; ``resident_packed`` counts the packed
     segments), ``segments``, ``rects``, ``repack_s`` (every column
     repack), ``merge_s`` and the rectangles' ``rect_dispatch_s`` and
-    ``rect_finish_s``, with its parts ``rect_wait_s`` (the engine's counts
-    arriving) and ``rect_exact_s`` (their f64 finish).
+    ``rect_finish_s``, with its parts ``rect_wait_s`` (the engine's
+    candidates arriving) and ``rect_exact_s`` (their f64 finish), and the
+    counters ``rect_cells`` (cells the rectangles' counts covered) and
+    ``rect_candidates`` (cells the engine's threshold test passed).
     """
     import numpy as np
 
     from ld_tools_tpu_torch.ingest import pack
-    from ld_tools_tpu_torch.ops.engine import pair_counts_async
-    from ld_tools_tpu_torch.ops.exact import exact_ld_from_counts, round4
+    from ld_tools_tpu_torch.ops.engine import rect_candidates_async
+    from ld_tools_tpu_torch.ops.ld_kernels import KEEP_MARGIN
     from ld_tools_tpu_torch.ops.ld_stream import ScanHits, stream_threshold_scan
     from ld_tools_tpu_torch.utils.distributed import (process_count,
                                                       process_index)
@@ -181,9 +216,10 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
     # cross-segment rectangles (i from the later segment, j from the
     # earlier one, preserving i > j), restricted to the max_dist corner.
     # Two-slot pipeline: pulling job k+1 from the generator ISSUES its
-    # counts (and does its host-side unpackbits repacking) while job k's
-    # exact f64 finish and threshold filter run on the host; the engine
-    # issues on a side stream, so the card works between rectangles.
+    # counts and threshold test (and does its host-side unpackbits
+    # repacking) while job k's candidates are finished in f64 on the host;
+    # the engine launches on a side stream, so the card works between
+    # rectangles.
     # Loop order is bi -> row block -> earlier segment: each row block
     # unpacks ONCE, and each earlier segment's packed cohort matrix is
     # built once and cached.  Under a cooperative multiprocess scan the
@@ -197,7 +233,8 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
         n_proc = process_count()
         proc_idx = process_index()
     rect_parts = []
-    pos32 = pos.astype(np.int32) if config.max_dist is not None else None
+    sel = 0 if config.ld_measure == "r_square" else 1
+    mask_thres = float(config.ld_low_thres) - KEEP_MARGIN
 
     cj_cache = {}
 
@@ -268,57 +305,34 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
                             Cj_full[c0 - A0:c1_stop - A0], axis=1,
                             count=n_j,
                         ).astype(np.int8)
-                        fin = pair_counts_async(
-                            Ci[: r1 - r0, :m], Cj[:, :m],
-                            device=config.device,
+                        c1_rows = c1_rows_full[: r1 - r0]
+                        c1_cols = Cj.sum(axis=1, dtype=np.int64)
+                        fin = rect_candidates_async(
+                            Ci[: r1 - r0, :m], Cj[:, :m], c1_rows, c1_cols,
+                            n_i, n_j, mask_thres, sel,
+                            pos1=pos[r0:r1], pos2=pos[c0:c1_stop],
+                            max_dist=config.max_dist, device=config.device,
                         )
-                        yield (r0, r1, c0, c1_stop, n_i, n_j, m,
-                               c1_rows_full[: r1 - r0],
-                               Cj.sum(axis=1, dtype=np.int64), fin)
+                        yield (r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows,
+                               c1_cols, fin)
 
     def finish_rect(job):
         r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows, c1_cols, fin = job
         with span("engine.wait", rect_stats, "rect_wait_s"):
-            c_ab, _, _ = fin()
-        with span("scanx.rect_exact", rect_stats, "rect_exact_s"):
-            ex = exact_ld_from_counts(
-                c_ab, c1_rows, c1_cols, m, len1=n_i, len2=n_j,
-            )
-        meas = (
-            ex.r_square
-            if config.ld_measure == "r_square"
-            else ex.d_prime
-        )
-        int_zero = (
-            ex.r_square_is_int_zero
-            if config.ld_measure == "r_square"
-            else ex.d_prime_is_int_zero
-        )
-        rounded = round4(meas)
-        rounded[int_zero] = 0.0
-        keep = rounded >= config.ld_low_thres
-        if config.max_dist is not None:
-            # int32 + in-place abs: the int64 broadcast difference alone
-            # was ~270 MB of transients per rectangle
-            dist = pos32[r0:r1, None] - pos32[None, c0:c1_stop]
-            np.abs(dist, out=dist)
-            keep &= dist <= config.max_dist
-        ii, jj = np.nonzero(keep)
-        if ii.size == 0:
-            return
-        rect_parts.append((
-            (ii + r0).astype(np.int64),
-            (jj + c0).astype(np.int64),
-            ex.r_square[keep], ex.d_prime[keep],
-            ex.r_square_is_int_zero[keep],
-            ex.d_prime_is_int_zero[keep],
-        ))
+            cands = fin()
+        rect_stats["rect_cells"] += (r1 - r0) * (c1_stop - c0)
+        rect_stats["rect_candidates"] += int(cands[0].size)
+        part = rect_hits(cands, r0, c0, c1_rows, c1_cols, m, n_i, n_j,
+                         config.ld_measure, config.ld_low_thres, rect_stats)
+        if part is not None:
+            rect_parts.append(part)
 
     # two-slot drive: pulling job k+1 issues it (and does its host
     # repacking) while job k's finish runs; dispatch_s happens under the
     # device's work
     rect_stats = {"rect_dispatch_s": 0.0, "rect_finish_s": 0.0,
-                  "rect_wait_s": 0.0, "rect_exact_s": 0.0, "rects": 0}
+                  "rect_wait_s": 0.0, "rect_exact_s": 0.0, "rects": 0,
+                  "rect_cells": 0, "rect_candidates": 0}
     pending = None
     it = rect_jobs()
     while True:
@@ -334,9 +348,11 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
     if rect_stats["rects"]:
         log.info(
             "cross-segment rectangles: %d blocks, dispatch %.2fs "
-            "(overlapped), finish %.2fs",
+            "(overlapped), finish %.2fs; rect_candidates %d of "
+            "rect_cells %d",
             rect_stats["rects"], rect_stats["rect_dispatch_s"],
-            rect_stats["rect_finish_s"],
+            rect_stats["rect_finish_s"], rect_stats["rect_candidates"],
+            rect_stats["rect_cells"],
         )
     stats.update(rect_stats, segments=len(segs))
 

@@ -72,20 +72,26 @@ def _torch_argv(store, trg, chrom, measure="r_square", thres=0.2,
 
 @pytest.mark.parametrize("counts", ["host", "device"])
 @pytest.mark.parametrize("measure,thres", [("r_square", 0.2),
-                                           ("d_prime", 0.9)])
+                                           ("d_prime", 0.9),
+                                           ("r_square", 0.0004),
+                                           ("d_prime", 0.0004)])
 @pytest.mark.parametrize("max_dist", [None, 9000])
 def test_chrx_scan_tsv_is_byte_identical(xstore, tmp_path, monkeypatch,
-                                         counts, measure, thres, max_dist):
+                                         caplog, counts, measure, thres,
+                                         max_dist):
     """The mixed scan: its segments, then its rectangles through the
     engine (the store's jobs are below the host cutoff; "device" sets it
-    to 0 in both engines so the rectangles take the device count)."""
+    to 0 in both engines so the rectangles take the device count).  The
+    engine tests the threshold beside the counts; at 0.0004, under the
+    test's 5e-4 margin, every cell of a rectangle is a candidate."""
     if counts == "device":
         for eng in (engine, jax_engine):
             monkeypatch.setattr(eng, "_HOST_COUNTS_MACS", 0)
     kw = dict(measure=measure, thres=thres, max_dist=max_dist)
     name, want = _jax_tsv(xstore, str(tmp_path / "jax"), "X", **kw)
-    (report,) = torch_ld_scan.main(_torch_argv(
-        xstore, str(tmp_path / "torch"), "X", **kw))
+    with caplog.at_level("INFO", logger="tpu_ld.tools.scan"):
+        (report,) = torch_ld_scan.main(_torch_argv(
+            xstore, str(tmp_path / "torch"), "X", **kw))
     assert os.path.basename(report.path) == name
     assert open(report.path, "rb").read() == want
     assert report.n_hits > 0
@@ -93,6 +99,11 @@ def test_chrx_scan_tsv_is_byte_identical(xstore, tmp_path, monkeypatch,
     assert st["segments"] == 3 and st["rects"] > 0
     assert st["blocks"] > 0 and st["hit_blocks"] > 0
     assert st["blocks_checked"] == st["hit_blocks"]
+    assert 0 < st["rect_candidates"] <= st["rect_cells"]
+    if thres < 5e-4 and max_dist is None:
+        assert st["rect_candidates"] == st["rect_cells"]
+    assert (f"rect_candidates {st['rect_candidates']} of rect_cells "
+            f"{st['rect_cells']}") in caplog.text
 
 
 @pytest.mark.parametrize("gend_names", ["male", "both"])
