@@ -106,7 +106,10 @@ class ScanHits:
     the values are f64 finished in the reference op order and the int-0
     sentinel masks are populated; otherwise they are the device f32 and
     the hit set is the raw device mask, one 4-dp rounding step below
-    ``thres``.
+    ``thres``.  ``stats`` holds the phases' seconds, the block counts and
+    the resident's layout: ``resident_packed`` (1 packed, 0 int8) and,
+    where this scan uploaded it (no resident-cache hit),
+    ``resident_dense`` (1 int8, 0 packed; :func:`prepare_resident`).
     """
 
     i: np.ndarray
@@ -155,8 +158,11 @@ def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
     ``band`` x ``chunk`` (clamped as the scan clamps it): V_pad =
     round_up(V, max(band, chunk)) + max(band, chunk), the haplotype axis
     to a multiple of 128 (bytes, when packed).  ``stats`` gets the host
-    part (popcounts, padded arrays) as ``upload_host_s`` and the copies
-    (with any unpack on the device, not waited for) as ``upload_copy_s``.
+    part (popcounts, padded arrays) as ``upload_host_s``, the copies
+    (with any unpack on the device, not waited for) as ``upload_copy_s``,
+    and the layout as ``resident_dense``: 1 when the resident is int8
+    (packed bytes inflated on the device, or an int8 input), 0 when it
+    stayed packed.
     """
     if resident not in _RESIDENT_MODES:
         raise ValueError(f"resident must be one of {_RESIDENT_MODES}, "
@@ -200,6 +206,7 @@ def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
             # inflate once on the device: the transfer stayed packed
             g = unpack_rows_device(g)
             packed = False
+        stats["resident_dense"] = float(not packed)
         return Resident(
             g=g,
             c1=torch.from_numpy(c1_host).to(dev),

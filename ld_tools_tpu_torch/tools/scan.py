@@ -75,7 +75,12 @@ class ScanReport:
     (store open, cohort layout, any column repack), ``write_s`` (the TSV)
     with its parts ``format_s`` (the measures' strings) and ``emit_s``
     (the gathers, columns and lines, written), ``tsv_bytes``, and
-    ``spanned_s``, the seconds of the scan that a program span names."""
+    ``spanned_s``, the seconds of the scan that a program span names.
+    A chromosome of one ploidy profile also reports its cohort:
+    ``cohort_repack_s`` (the host repack of a subset's bit columns, inside
+    ``open_s``; 0 where the cohort is the store's full layout, read
+    zero-copy), ``cohort_haplotypes`` (the haplotypes scanned) and
+    ``repack_rows`` (the rows repacked: V, or 0 zero-copy)."""
 
     chrom: str
     path: str
@@ -149,12 +154,13 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
     zip-truncation semantics, calc_ld.py:30-33).  Hits are merged and
     sorted by (i, j).  The stats hold the segment scans' numeric stats
     summed (phases, blocks; ``resident_packed`` counts the packed
-    segments), ``segments``, ``rects``, ``repack_s`` (every column
-    repack), ``merge_s`` and the rectangles' ``rect_dispatch_s`` and
-    ``rect_finish_s``, with its parts ``rect_wait_s`` (the engine's
-    candidates arriving) and ``rect_exact_s`` (their f64 finish), and the
-    counters ``rect_cells`` (cells the rectangles' counts covered) and
-    ``rect_candidates`` (cells the engine's threshold test passed).
+    segments, ``resident_dense`` the int8 ones), ``segments``, ``rects``,
+    ``repack_s`` (every column repack), ``merge_s`` and the rectangles'
+    ``rect_dispatch_s`` and ``rect_finish_s``, with its parts
+    ``rect_wait_s`` (the engine's candidates arriving) and
+    ``rect_exact_s`` (their f64 finish), and the counters ``rect_cells``
+    (cells the rectangles' counts covered) and ``rect_candidates`` (cells
+    the engine's threshold test passed).
     """
     import numpy as np
 
@@ -438,13 +444,20 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
                 # columns once)
                 gid = int(chrom_groups[0]) if chrom_groups.size else 0
                 cols = cp.cols_for(gid)
+                stats["cohort_repack_s"] = 0.0
                 if cols.size == cd.n_haplotypes and np.array_equal(
                     cols, np.arange(cd.n_haplotypes)
                 ):
                     gp, n_hap = cd.packed, cd.n_haplotypes
+                    stats["repack_rows"] = 0
                 else:
-                    gp = pack.pack_columns(cd.packed, cols, cd.n_haplotypes)
+                    with span("scan.cohort_repack", stats,
+                              "cohort_repack_s"):
+                        gp = pack.pack_columns(cd.packed, cols,
+                                               cd.n_haplotypes)
                     n_hap = cols.size
+                    stats["repack_rows"] = int(gp.shape[0])
+                stats["cohort_haplotypes"] = int(n_hap)
         if mixed:
             hits = _scan_mixed_chromosome(data, cd, cp, config,
                                           multiprocess=multiprocess)
@@ -515,12 +528,22 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
         stats["tsv_bytes"] = os.path.getsize(path)
         n_pairs = cd.n_variants * (cd.n_variants - 1) / 2
         elapsed = time.time() - t_start
+        cohort = ""
+        if "cohort_haplotypes" in stats:  # one ploidy profile
+            cohort = (
+                f"; cohort_haplotypes {stats['cohort_haplotypes']}, "
+                f"repack_rows {stats['repack_rows']} "
+                f"({stats['cohort_repack_s']:.2f}s), "
+                + (f"resident_dense {stats['resident_dense']:.0f}"
+                   if "resident_dense" in stats else "resident cached")
+            )
         log.info(
             "chr%s: %d/%d pairs above threshold (%.1fs, %.2f Gpairs/s; open "
-            "%.2fs, write %.2fs: format %.2fs, emit %.2fs) -> %s",
+            "%.2fs, write %.2fs: format %.2fs, emit %.2fs%s) -> %s",
             chrom, len(hits.i), int(n_pairs), elapsed,
             n_pairs / max(elapsed, 1e-9) / 1e9, stats["open_s"],
-            stats["write_s"], stats["format_s"], stats["emit_s"], path,
+            stats["write_s"], stats["format_s"], stats["emit_s"], cohort,
+            path,
         )
         return ScanReport(chrom=chrom, path=path, n_hits=int(len(hits.i)),
                           stats=stats)
