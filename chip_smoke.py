@@ -30,7 +30,15 @@ Phases, each of which exits non-zero on any failure:
             not divide.  Every bit-plane and K1b output must equal its int8
             twin's bit for bit (K2 = K1, K1b = K1, K4 = K3, K6 = K5).
             Pass-1 counts against pass-2 hits in both mask modes and both
-            resident layouts.  Per kernel its time, the plain version's,
+            resident layouts.  The resident's gather from the store's
+            packed rows (ld_gather_rows_kernel, which replaces no TPU
+            kernel) against its plain version, byte for byte: the full
+            panel and a 970-haplotype cohort, each into the int8 and the
+            packed layout, on a full 65,536-row staging chunk and a
+            partial one, directly and through prepare_resident; its
+            launches on the 1.1 M -w 1000000 scan's path (one a chunk);
+            timed at 1,105,920 rows beside its byte bound.  Per kernel its
+            time, the plain version's,
             the least time the card could take and their ratio (the
             roofline share), and torch._int_mm over the same int8 block
             products as a yardstick the port never calls (for K1b also
@@ -198,6 +206,13 @@ K3 = "ld_block_kernel<FORM_S8,STORE_SWEEP>"
 K4 = "ld_block_kernel<FORM_BITS,STORE_SWEEP>"
 K2 = "ld_block_kernel<FORM_BITS,STORE_TRIANGLE>"
 PALLAS = "ld_tools_tpu/ops/ld_pallas.py"
+# the resident's gather from the store's packed rows (replaces no TPU
+# kernel): csrc/ld_gather_rows.cu through ops/ld_kernels.gather_rows_device
+GATHER = "ld_gather_rows_kernel"
+GATHER_SOURCE = "ld_tools_tpu_torch/csrc/ld_gather_rows.cu"
+# a population cohort of the panel, as the 1000 Genomes EUR panel: 485
+# samples, 970 haplotypes
+N_COHORT_SAMPLES = 485
 # K8's stages (ops/ld_kernels.STAGES) and block (bench_microkernels.py's)
 STAGES = ("counts", "scale", "fast", "exact")
 STAGE_BLOCK = 512
@@ -244,6 +259,7 @@ KERNEL_OF_SITE = {
     # K7: K5's (or K6's) kernel launched once per shard
     "ld_band_count_sharded": "ld_band_count_sharded",
     "ld_stage_blocks": f"{K1}/EPI_*",  # one of the four
+    "gather_rows_device": GATHER,
 }
 
 
@@ -1135,6 +1151,135 @@ def phase_scan_shapes(gp_host, pos, results):
     torch.cuda.empty_cache()
 
 
+def phase_gather(gp_host):
+    """The resident's gather (``gather_rows_device``) against its plain
+    version on the card, byte for byte and count for count: the full panel
+    (every column, a padded copy) and a cohort of 970 haplotypes, each
+    into the int8 and the packed resident, over the scan's own staging
+    chunks: a full one of 65,536 rows (the grid full, each warp walking
+    some 4 rows through its shared-memory slice) and a partial last one of
+    4,321, rows of 626 bytes (every row start off 16 bytes) with all-0 and
+    all-1 rows; then through ``prepare_resident`` over the same 69,857
+    rows (two chunks) against the CPU's resident, field by field.  Then
+    each timed at the full chromosome's 1,105,920 rows in one launch
+    beside its byte bound and its plain version; returns those records."""
+    import torch
+
+    from ld_tools_tpu_torch.ops import ld_kernels as lk
+    from ld_tools_tpu_torch.ops import ld_stream as ls
+
+    dev = torch.device("cuda")
+    rng = np.random.default_rng(19)
+    samples = np.sort(rng.choice(N_HAP // 2, N_COHORT_SAMPLES, replace=False))
+    cohort = np.stack([2 * samples, 2 * samples + 1], axis=1).ravel()
+    stage = ls._STAGE_ROWS
+    v = stage + 4321
+    raw = np.ascontiguousarray(
+        np.tile(gp_host, (-(-v // gp_host.shape[0]), 1))[:v])
+    raw[3] = 0
+    raw[stage + 4] = np.packbits(np.ones(N_HAP, dtype=np.uint8))
+    src = torch.from_numpy(raw).to(dev)
+    chunks = ((0, stage), (stage, v))
+    lists = {"full panel": None, "cohort": cohort}
+    for name, cols in lists.items():
+        cols_dev = (None if cols is None
+                    else torch.from_numpy(cols.astype(np.int32)).to(dev))
+        n_cols = N_HAP if cols is None else cols.size
+        w = 128 * -(-n_cols // 1024)
+        for dense in (True, False):
+            layout = "int8" if dense else "packed"
+            dtype = torch.int8 if dense else torch.uint8
+            for r0, r1 in chunks:
+                rows = src[r0:r1]
+                shape = (r1 - r0, 8 * w if dense else w)
+                got = (torch.full(shape, 0x5A, dtype=dtype, device=dev),
+                       torch.full(shape[:1], -1, dtype=torch.int32,
+                                  device=dev))
+                want = (torch.empty(shape, dtype=dtype, device=dev),
+                        torch.empty(shape[:1], dtype=torch.int32, device=dev))
+                lk.gather_rows_device(rows, cols_dev, *got)
+                lk.gather_rows_device_plain(rows, cols_dev, *want)
+                torch.cuda.synchronize()
+                check(torch.equal(got[0], want[0])
+                      and torch.equal(got[1], want[1]),
+                      f"{GATHER} ({name}, {layout}, rows {r0}:{r1}) differs "
+                      "from its plain version")
+                if r0 == stage:
+                    check(int(got[1][4]) == n_cols, f"{GATHER} ({name}): "
+                          f"the all-1 row counts {int(got[1][4])}")
+                del got, want
+        saved = os.environ.get(LIMIT)
+        try:
+            for limit in (None, "0"):
+                if limit is not None:
+                    os.environ[LIMIT] = limit
+                lk.reset_launches()
+                res = ls.prepare_resident(raw, n_cols, np.arange(v), "cuda",
+                                          packed=True, cols=cols)
+                torch.cuda.synchronize()
+                ref = ls.prepare_resident(raw, n_cols, np.arange(v), "cpu",
+                                          packed=True, cols=cols)
+                check(lk.gather_rows_device.launches == len(chunks),
+                      f"prepare_resident ({name}) launched the gather "
+                      f"{lk.gather_rows_device.launches} times, not "
+                      f"{len(chunks)}")
+                check(res.packed == ref.packed == (limit == "0")
+                      and all(torch.equal(getattr(res, f).cpu(),
+                                          getattr(ref, f))
+                              for f in ("g", "c1", "ipq", "pos"))
+                      and np.array_equal(res.c1_full, ref.c1_full),
+                      f"prepare_resident ({name}, limit {limit}) on the "
+                      "card differs from the CPU's")
+                del res, ref
+        finally:
+            if saved is None:
+                os.environ.pop(LIMIT, None)
+            else:
+                os.environ[LIMIT] = saved
+    del src
+    torch.cuda.empty_cache()
+    log(f"{GATHER}: equal to its plain version (full panel and a "
+        f"{cohort.size}-haplotype cohort, int8 and packed, a {stage}-row "
+        f"chunk and a {v - stage}-row one; prepare_resident over {v} rows "
+        "against the CPU's)")
+
+    # the full chromosome in one launch: chr21 as the full panel packed
+    # (the layout past the int8 limit), and in the cohort int8
+    reps = -(-N_VARIANTS_FULL // gp_host.shape[0])
+    full = torch.from_numpy(gp_host).to(dev).repeat(reps, 1)[:N_VARIANTS_FULL]
+    v, b = full.shape
+    out = {}
+    for name, cols, dense in (("full panel, packed", None, False),
+                              ("cohort, int8", cohort, True)):
+        cols_dev = (None if cols is None
+                    else torch.from_numpy(cols.astype(np.int32)).to(dev))
+        n_cols = N_HAP if cols is None else cols.size
+        w = 128 * -(-n_cols // 1024)
+        width = 8 * w if dense else w
+        dst = torch.empty((v, width), dtype=torch.int8 if dense
+                          else torch.uint8, device=dev)
+        cnt = torch.empty((v,), dtype=torch.int32, device=dev)
+        ms = cuda_ms(lambda: lk.gather_rows_device(full, cols_dev, dst, cnt),
+                     reps=20)
+        plain_ms = cuda_ms(lambda: lk.gather_rows_device_plain(
+            full[:65_536], cols_dev, dst[:65_536], cnt[:65_536]), reps=3
+        ) * v / 65_536
+        nbytes = v * b + v * width + 4 * v
+        b_ms, by = bound(0, nbytes)
+        out[name] = dict(kernel=GATHER, source=GATHER_SOURCE, rows=v,
+                         src_bytes=b, out_width=width, ms=ms,
+                         plain_ms=plain_ms, bound_ms=b_ms, bound_by=by,
+                         bytes=nbytes, roofline_share=b_ms / ms)
+        log(f"{GATHER} ({name}, {v} rows of {b} bytes to {width}): "
+            f"{ms:.3f} ms, bound {b_ms:.3f} ms ({by}, {nbytes / 1e9:.3f} GB),"
+            f" share {b_ms / ms:.2f}; plain {plain_ms:.1f} ms (from 65,536 "
+            "rows)")
+        del dst, cnt
+    del full
+    torch.cuda.empty_cache()
+    return out
+
+
 def _recorded(module, name):
     """Replace the launch site ``module.name`` by a wrapper that records
     each call's arguments and CUDA events around it (on the current
@@ -1245,7 +1390,7 @@ def _log_scan(tag, report, secs, launches):
               "write_s")
     # the rest: data prep checks, the store's load, the cohort columns
     st["rest_s"] = secs - sum(st[k] for k in phases)
-    ran = {KERNELS[k][0]: n for k, n in launches.items() if n}
+    ran = {KERNELS.get(k, (k,))[0]: n for k, n in launches.items() if n}
     log(f"scan ({tag}): {report.n_hits} hits in {secs:.2f}s; phases "
         + " ".join(f"{k}={st[k]:.3f}" for k in phases + ("rest_s",))
         + f"; blocks {st['blocks']}, hit blocks {st['hit_blocks']}, "
@@ -1399,6 +1544,14 @@ def phase_scan(work, gp, pos, results):
     check(st["resident_bytes"] == (N_VARIANTS_FULL + 7680) * W_PACKED,
           f"resident bytes {st['resident_bytes']}")
     _check_layout_launches("1.1M, window", launches, packed=True)
+    # the resident built by the gather, one launch a staging chunk
+    chunks = -(-N_VARIANTS_FULL // ld_stream._STAGE_ROWS)
+    check(launches[GATHER] == chunks and st["resident_gather"] == 1.0,
+          f"the 1.1M scan launched {GATHER} {launches[GATHER]} times, not "
+          f"{chunks} (resident_gather {st.get('resident_gather')})")
+    results[GATHER] = dict(launches=launches[GATHER], path=(
+        f"prepare_resident, launches from the {N_VARIANTS_FULL}-variant "
+        "-w 1000000 scan"))
     for name in ("ld_band_count_kernel<FORM_BITS>",
                  K4):
         results[name]["launches"] = launches[name]
@@ -1411,7 +1564,7 @@ def phase_scan(work, gp, pos, results):
     runs["full_size_window"] = (report, secs, launches)
     shutil.rmtree(data, ignore_errors=True)
     summary = {tag: dict(hits=r.n_hits, seconds=s, stats=r.stats,
-                         launches={KERNELS[k][0] + " " + k: n
+                         launches={KERNELS.get(k, ("-",))[0] + " " + k: n
                                    for k, n in l.items() if n})
                for tag, (r, s, l) in runs.items()}
     # the stores the sharded phase takes on: the chr21 store on disk with
@@ -1639,7 +1792,7 @@ def phase_sharded(work, stores, gp, pos, results):
               f"sharded scan ({layout}) stats {st}")
         sweep = K4 if layout == "packed" else K3
         _only_launched(f"the sharded scan ({layout})", runs["sharded"][2],
-                       {"ld_band_count_sharded", sweep})
+                       {"ld_band_count_sharded", sweep, GATHER})
         if layout == "int8":
             k7_launches = runs["sharded"][2]["ld_band_count_sharded"]
         summary[f"scan_{layout}"] = {
@@ -1692,9 +1845,13 @@ def phase_sharded(work, stores, gp, pos, results):
                 # -d 2 under a launcher: each process has its one card,
                 # so the one-device scan (JAX's with one chip a process)
                 _only_launched(f"cooperative rank {rank}", launches,
-                               {"ld_band_count", "ld_band_sweep_blocks"})
+                               {"ld_band_count", "ld_band_sweep_blocks",
+                                "gather_rows_device"})
             else:
-                check(not any(launches.values()) and "resumed batch" in err,
+                # the resident is still gathered; nothing is counted
+                check(not any(n for k, n in launches.items()
+                              if k != "gather_rows_device")
+                      and "resumed batch" in err,
                       f"resume rank {rank} launched {launches}")
         summary[tag] = dict(seconds=secs, launches=[r[1] for r in ranks],
                             phases=phases)
@@ -1788,7 +1945,10 @@ def tool_d_runs(work, data, solo):
               "shard(s)")
         count = ("ld_band_count_sharded" if tags[tag] > 1
                  else "ld_band_count_kernel")
-        _only_launched(f"ld_scan {tag}", launches, {count, K3})
+        # the resident's gather where the scan uploaded (not on a hit of
+        # the resident cache, which the same shard layout reuses)
+        upload = {GATHER} if not st["resident_hit"] else set()
+        _only_launched(f"ld_scan {tag}", launches, {count, K3} | upload)
         with open(report.path, "rb") as fh:
             check(fh.read() == solo, f"the ld_scan {tag} TSV differs from "
                   "the single-process TSV")
@@ -2367,7 +2527,7 @@ def phase_mixed_scan(work):
             bodies[tag] = fh.read()
         runs[tag] = dict(hits=report.n_hits, seconds=secs, stats=st,
                          engine_launches=rects,
-                         launches={KERNELS[k][0] + " " + k: n
+                         launches={KERNELS.get(k, ("-",))[0] + " " + k: n
                                    for k, n in launches.items() if n})
     check(bodies["int8"] == bodies["packed"],
           "chrX: the packed layout's TSV differs from the int8 layout's")
@@ -2775,7 +2935,8 @@ def phase_measure(work):
         "ld_tools_tpu_torch.bench.suite", "--configs", "wg", "--out", art,
         timeout=900, env={"TPU_LD_WG_SCALE": WG_SCALE, "TPU_LD_WG_DIR": keep})
     _only_launched("bench.suite --configs wg", rep["launches"],
-                   {"ld_band_count", "ld_band_sweep_blocks"})
+                   {"ld_band_count", "ld_band_sweep_blocks",
+                    "gather_rows_device"})
     with open(art) as fh:
         rows = json.load(fh)["results"]
     by = {r["config"]: r for r in rows}
@@ -2833,6 +2994,7 @@ def main():
     del g1, gq1
     phase_ragged(gp, pos, results)
     phase_scan_shapes(gp, pos, results)
+    gather = phase_gather(gp)
     work = tempfile.mkdtemp(prefix="chip_smoke_")
     try:
         scan, stores = phase_scan(work, gp, pos, results)
@@ -2868,8 +3030,27 @@ def main():
             roofline_share=r["bound_ms"] / r["ms"],
             path=r["path"], shape=r["shape"], **r.get("extra", {}),
         ))
+    # the gather (replaces no TPU kernel): launches on the 1.1M scan's
+    # path (the full panel, packed), its time and bound there in one
+    # launch over the chromosome, and the cohort's int8 gather beside it
+    g = results[GATHER]
+    check(g["launches"] >= 1, f"{GATHER} was never launched on its path")
+    r, c = gather["full panel, packed"], gather["cohort, int8"]
+    kernels.append(dict(
+        name=GATHER, tag="gather", route="cuda", source=GATHER_SOURCE,
+        replaces=None, launches=g["launches"], max_abs_err=0.0, ms=r["ms"],
+        plain_ms=r["plain_ms"], bound_ms=r["bound_ms"],
+        bound_by=r["bound_by"], library_ms=None, int_mm_ms=None,
+        roofline_share=r["bound_ms"] / r["ms"], path=g["path"],
+        shape=[r["rows"], r["src_bytes"], r["out_width"]],
+        cohort=dict(ms=c["ms"], plain_ms=c["plain_ms"],
+                    bound_ms=c["bound_ms"], bound_by=c["bound_by"],
+                    roofline_share=c["roofline_share"],
+                    shape=[c["rows"], c["src_bytes"], c["out_width"]]),
+    ))
     log(f"total: {time.perf_counter() - t_start:.1f}s")
-    print(json.dumps({"build_s": build["seconds"], "scan": scan,
+    print(json.dumps({"build_s": build["seconds"], "gather": gather,
+                      "scan": scan,
                       "area": area, "triangle": triangle,
                       "mixed_scan": mixed, "sharded": sharded,
                       "entry": entry, "headline": headline,

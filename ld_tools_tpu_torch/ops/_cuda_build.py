@@ -27,7 +27,8 @@ from ld_tools_tpu_torch.utils.paths import BUILD_DIR, PKG_ROOT
 CSRC = os.path.join(PKG_ROOT, "csrc")
 # ld_block_sm90.cu: the wgmma / TMA triangle (K1, K8; on packed bytes K2;
 # bf16 and tf32, K1b) and band sweeps (K3, K4); ld_count_sm90.cu: the
-# wgmma / TMA count pass (K5, K6); both on ld_sm90_core.cuh
+# wgmma / TMA count pass (K5, K6); both on ld_sm90_core.cuh;
+# ld_gather_rows.cu: the scan's resident from the store's packed rows
 SOURCES = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cu"))))
 HEADERS = tuple(sorted(glob.glob(os.path.join(CSRC, "*.cuh"))))
 LIB = os.path.join(BUILD_DIR, "libld_kernels.so")
@@ -64,6 +65,7 @@ _SIGNATURES = {
         _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _F, _F,
         _I, _I, _I, _P, _P, _P, _P, _P,
     ),
+    "ldk_gather_rows": (_P, _I, _I, _P, _I, _I, _I, _I, _P, _P, _P),
 }
 
 # operand forms of the rows (enum Form in csrc/ld_common.cuh)

@@ -38,6 +38,12 @@ Map to ld_pallas.py (by line):
   ld_band_pallas      :1236  wrapper over ld_band_sweep
   ld_band_pallas_packed :1268  wrapper over ld_band_sweep(packed=True)
 
+The scan's resident is gathered from the store's packed rows on the card
+by gather_rows_device (ld_gather_rows_kernel, csrc/ld_gather_rows.cu;
+its plain twin gather_rows_device_plain), which replaces no TPU kernel:
+the JAX scan repacks a cohort's columns and takes the alt counts on the
+host, and inflates the bytes with unpack_rows_device.
+
 The launch sites each take a LIST of block coordinates, so one launch
 covers a whole triangle, a whole batch of a scan's hit blocks or a whole
 count pass, and each has a ``*_plain`` twin:
@@ -1232,11 +1238,103 @@ def ld_band_count_sharded(devices, g_dev, c1_dev, ipq_dev, pos_dev, cij,
 
 ld_band_count_sharded.launches = 0
 
+
+# ---- the scan's resident from the store's packed rows ----------------------
+
+
+def _gather_prep(src, cols, out, counts):
+    """Check gather_rows_device's arguments; returns the number of
+    columns a row of ``out`` gets (8 per source byte without ``cols``)."""
+    if src.dtype != torch.uint8 or src.dim() != 2 or not src.is_contiguous():
+        raise TypeError("src must be contiguous 2-D uint8 packed rows")
+    n, b = src.shape
+    if cols is not None and (cols.dtype != torch.int32 or cols.dim() != 1
+                             or not cols.is_contiguous() or not cols.numel()):
+        raise TypeError("cols must be a non-empty contiguous 1-D int32 list")
+    if out.dtype not in (torch.int8, torch.uint8) or out.dim() != 2 \
+            or not out.is_contiguous() or out.shape[0] != n:
+        raise ValueError(f"out must be contiguous (n, width) int8 (dense) or "
+                         f"uint8 (packed) rows, n = {n}")
+    if counts.dtype != torch.int32 or counts.shape != (n,) \
+            or not counts.is_contiguous():
+        raise ValueError(f"counts must be a contiguous ({n},) int32 vector")
+    n_cols = 8 * b if cols is None else cols.numel()
+    room = out.shape[1] * (1 if out.dtype == torch.int8 else 8)
+    if out.shape[1] % 16 or n_cols > room:
+        raise ValueError(f"out rows ({out.shape[1]} bytes) must be a "
+                         f"multiple of 16 bytes holding {n_cols} columns")
+    return n_cols
+
+
+def gather_rows_device_plain(src, cols, out, counts):
+    """Plain version of :func:`gather_rows_device` on src's device: the
+    rows' bits (:func:`unpack_rows_device`), the listed columns, their
+    sums, then the padded int8 rows or the bits packed again MSB first."""
+    n_cols = _gather_prep(src, cols, out, counts)
+    bits = unpack_rows_device(src)
+    if cols is not None:
+        if int(cols.min()) < 0 or int(cols.max()) >= bits.shape[1]:
+            raise ValueError(f"cols must lie in [0, {bits.shape[1]})")
+        bits = bits[:, cols.to(torch.int64)]
+    counts.copy_(bits.sum(dim=1, dtype=torch.int32))
+    out.zero_()
+    if out.dtype == torch.int8:
+        out[:, :n_cols] = bits
+    else:
+        n_bytes = -(-n_cols // 8)
+        planes = torch.zeros((src.shape[0], n_bytes * 8), dtype=torch.int32,
+                             device=src.device)
+        planes[:, :n_cols] = bits
+        weights = 2 ** torch.arange(7, -1, -1, dtype=torch.int32,
+                                    device=src.device)
+        out[:, :n_bytes] = (planes.view(-1, n_bytes, 8) * weights).sum(
+            dim=2).to(torch.uint8)
+    return out, counts
+
+
+def gather_rows_device(src, cols, out, counts):
+    """Rows of the scan's resident from the store's raw packed rows: the
+    launch site of ld_gather_rows_kernel (csrc/ld_gather_rows.cu), which
+    replaces no TPU kernel (the JAX scan repacks and popcounts on the
+    host).
+
+    ``src`` (n, B) uint8 holds the store's rows (8 haplotypes a byte, MSB
+    first); ``cols`` a (k,) int32 list of bit columns (a cohort's
+    haplotypes, in order) or None for every bit of a row in order.  Row r
+    of ``out`` becomes the listed bits of source row r: int8 {0, 1} when
+    ``out`` is int8 (the dense resident), packed bytes MSB first when it
+    is uint8; past the list every column is 0.  ``counts[r]`` becomes the
+    row's alt count over the list.  ``out``'s rows are a multiple of 16
+    bytes.  Each column must lie below 8 * B: checked here for CPU
+    tensors; on the card the caller checks (a check would wait for the
+    card) and a column past the row reads 0.  Returns (out, counts).
+    """
+    tensors = (src, out, counts) + (() if cols is None else (cols,))
+    if not _on_card(*tensors):
+        return gather_rows_device_plain(src, cols, out, counts)
+    n_cols = _gather_prep(src, cols, out, counts)
+    n, b = src.shape
+    if n:
+        if src.data_ptr() % 16 or out.data_ptr() % 16:
+            raise ValueError("src and out must start 16-byte aligned")
+        grid = min(-(-n // 8), 16 * _sm_count(src.device))
+        err = _launch(
+            "ldk_gather_rows", src.device, src.data_ptr(), n, b,
+            None if cols is None else cols.data_ptr(), n_cols,
+            int(out.dtype == torch.int8), out.shape[1], grid,
+            out.data_ptr(), counts.data_ptr())
+        _cuda_build.check(err, "ld_gather_rows_kernel")
+        gather_rows_device.launches += 1
+    return out, counts
+
+
+gather_rows_device.launches = 0
+
 LAUNCH_SITES = (
     ld_triangle_blocks, ld_triangle_blocks_bf16, ld_triangle_blocks_tf32,
     ld_triangle_blocks_packed, ld_band_sweep_blocks,
     ld_band_sweep_blocks_packed, ld_band_count, ld_band_count_packed,
-    ld_band_count_sharded, ld_stage_blocks,
+    ld_band_count_sharded, ld_stage_blocks, gather_rows_device,
 )
 
 

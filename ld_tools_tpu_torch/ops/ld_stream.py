@@ -2,8 +2,9 @@
 
 Counterpart of ld_tools_tpu/ops/ld_stream.py.  The genotype matrix goes to
 the device once (``prepare_resident``) in one of two layouts, chosen as
-the JAX scan chooses them: the store's bitpacked bytes inflated to int8 on
-the device (chr21 scale is 115,200 x 5,120 int8 = 590 MB), or, past
+the JAX scan chooses them: the store's bitpacked rows (a cohort's columns
+of them) gathered to int8 on the device (chr21 scale is 115,200 x 5,120
+int8 = 590 MB), or, past
 ``TPU_LD_DENSE_RESIDENT_BYTES`` of int8 (4 GiB by default: some 839,000
 variants of 5,008 haplotypes), kept packed (a 1.1M-variant chromosome is
 713 MB packed, 5.7 GB inflated).  The work follows the JAX scan's tiles
@@ -37,16 +38,17 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import os
+import time
 
 import numpy as np
 import torch
 
-from ld_tools_tpu_torch.ingest import pack as _pack
 from ld_tools_tpu_torch.ops import _cuda_build
 from ld_tools_tpu_torch.ops.exact import exact_ld_elementwise, round4
 from ld_tools_tpu_torch.ops.ld_kernels import (
     KEEP_MARGIN,
     block_keep_mask,
+    gather_rows_device,
     ld_band_count,
     ld_band_count_sharded,
     ld_band_sweep_blocks,
@@ -55,7 +57,6 @@ from ld_tools_tpu_torch.ops.ld_kernels import (
     pack_block_coords,
     shard_devices,
     shard_slices,
-    unpack_rows_device,
 )
 from ld_tools_tpu_torch.utils.device import device_guard, resolve_device
 from ld_tools_tpu_torch.utils.distributed import (local_device, process_count,
@@ -85,6 +86,10 @@ _CHUNK = 7680
 
 # resident layouts (the JAX scan's ``resident`` argument)
 _RESIDENT_MODES = ("auto", "dense", "packed")
+
+# store rows a pinned staging chunk carries to the card (41 MB of a
+# 5,008-haplotype store's 626-byte rows)
+_STAGE_ROWS = 65536
 
 
 def dense_resident_limit() -> int:
@@ -142,49 +147,90 @@ class Resident:
         return self.g.shape[1] * (8 if self.packed else 1)
 
 
+def scan_columns(cols, row_bytes: int):
+    """A cohort's bit columns as the gather takes them: None (every
+    column of the store's rows, in order) for None or for the identity
+    over all ``8 * row_bytes`` bits of a row, else the list as int64.  A
+    list that stops short of the row's last bit stays a list: the bits
+    past it may be haplotypes the cohort leaves out.  Raises on a column
+    outside the row."""
+    if cols is None:
+        return None
+    cols = np.asarray(cols, dtype=np.int64).reshape(-1)
+    if cols.size == 0:
+        raise ValueError("cols must name at least one column")
+    if cols.min() < 0 or cols.max() >= 8 * row_bytes:
+        raise ValueError(f"cols must lie in [0, {8 * row_bytes})")
+    if cols.size == 8 * row_bytes and np.array_equal(
+            cols, np.arange(cols.size)):
+        return None
+    return cols
+
+
+def _cols_sha(cols):
+    return (None if cols is None
+            else hashlib.sha256(cols.tobytes()).hexdigest())
+
+
 def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
-                     packed: bool = False, resident: str = "auto",
+                     packed: bool = False, cols=None, resident: str = "auto",
                      band: int = _BAND, chunk: int = _CHUNK,
                      stats: dict = None) -> Resident:
     """Turn the store's host arrays into the scan's device tensors.
 
     ``G_or_packed`` is int8 (V, H) {0,1}, or with ``packed=True`` the
-    store's bitpacked uint8 (V, ceil(H/8)) bytes, which go to the device
-    packed.  There they are inflated to int8 when ``resident`` is
-    "dense", or "auto" and the inflated matrix (v_pad * w_bytes * 8)
-    stays within :func:`dense_resident_limit`; otherwise (and always for
-    "packed") they stay packed.  This is the JAX scan's rule
+    store's bitpacked uint8 (V, B) rows as they lie on disk (a memory map
+    does), with ``cols`` the cohort's bit columns (None: every bit of a
+    row in order, the bits past ``n_haplotypes`` being the store's zero
+    padding; with a list, ``n_haplotypes`` is its length).  Packed rows are
+    gathered into the resident on the device
+    (:func:`ld_kernels.gather_rows_device`): int8 {0,1} when
+    ``resident`` is "dense", or "auto" and the int8 matrix (v_pad *
+    w_bytes * 8) stays within :func:`dense_resident_limit`; otherwise
+    (and always for "packed") packed bytes.  This is the JAX scan's rule
     (ld_stream.py:1108-1127).  Padding follows the JAX scan at the tiling
     ``band`` x ``chunk`` (clamped as the scan clamps it): V_pad =
     round_up(V, max(band, chunk)) + max(band, chunk), the haplotype axis
-    to a multiple of 128 (bytes, when packed).  ``stats`` gets the host
-    part (popcounts, padded arrays) as ``upload_host_s``, the copies
-    (with any unpack on the device, not waited for) as ``upload_copy_s``,
-    and the layout as ``resident_dense``: 1 when the resident is int8
-    (packed bytes inflated on the device, or an int8 input), 0 when it
-    stayed packed.
+    to a multiple of 128 (bytes, when packed); padding rows and columns
+    are 0.
+
+    The host's one pass over packed rows is a copy of each
+    ``_STAGE_ROWS``-row chunk into one of two pinned buffers; each chunk
+    goes over on the current stream and the gather writes its rows of the
+    resident and their alt counts, which come home as ``c1_full``.
+    ``stats`` gets the host part (those copies; the per-row vectors) as
+    ``upload_host_s``, the transfers, launches and the wait for the
+    counts as ``upload_copy_s``, the gather's own time as
+    ``gather_rows_s``
+    (two CUDA events around each launch, summed; the host clock on the
+    CPU), ``resident_gather`` (1: built from packed rows by the gather; 0:
+    an int8 host array came in) and the layout as ``resident_dense`` (1
+    int8, 0 packed).
     """
     if resident not in _RESIDENT_MODES:
         raise ValueError(f"resident must be one of {_RESIDENT_MODES}, "
                          f"got {resident!r}")
     stats = {} if stats is None else stats
     dev = resolve_device(device)
-    with span("scan.upload_host", stats, "upload_host_s"):
-        if packed:
-            src = np.ascontiguousarray(G_or_packed, dtype=np.uint8)
-            v = src.shape[0]
-            c1_full = _pack.popcounts(src)
-            w = _round_up(src.shape[1], 128)
-        else:
+    if packed:
+        g, c1_full = _gather_resident(G_or_packed, cols, dev, resident,
+                                      band, chunk, stats)
+    else:
+        if cols is not None:
+            raise ValueError("cols selects bit columns of packed rows")
+        with span("scan.upload_host", stats, "upload_host_s"):
             src = np.asarray(G_or_packed, dtype=np.int8)
             v, h = src.shape
             c1_full = src.astype(np.int64).sum(axis=1)
-            w = _round_up(h, 128)
-        band = min(band, _round_up(v, 256))
-        chunk = min(chunk, _round_up(v, 512))
-        v_pad = _round_up(v, max(band, chunk)) + max(band, chunk)
-        g_host = np.zeros((v_pad, w), dtype=src.dtype)
-        g_host[:v, : src.shape[1]] = src
+            v_pad = _padded_rows(v, band, chunk)
+            g_host = np.zeros((v_pad, _round_up(h, 128)), dtype=np.int8)
+            g_host[:v, :h] = src
+        with span("scan.upload_copy", stats, "upload_copy_s"):
+            g = torch.from_numpy(g_host).to(dev)
+        del g_host
+        stats["resident_gather"] = 0.0
+    v, v_pad = c1_full.shape[0], g.shape[0]
+    with span("scan.upload_host", stats, "upload_host_s"):
         c1_host = np.zeros((v_pad, 1), dtype=np.float32)
         c1_host[:v, 0] = c1_full
         p_host = c1_host / np.float32(n_haplotypes)
@@ -198,14 +244,7 @@ def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
         pos_host = np.full((v_pad,), -(2**30), dtype=np.int32)
         pos_host[:v] = np.asarray(pos, dtype=np.int64)
     with span("scan.upload_copy", stats, "upload_copy_s"):
-        g = torch.from_numpy(g_host).to(dev)
-        del g_host
-        if packed and resident != "packed" and (
-                resident == "dense"
-                or v_pad * w * 8 <= dense_resident_limit()):
-            # inflate once on the device: the transfer stayed packed
-            g = unpack_rows_device(g)
-            packed = False
+        packed = g.dtype == torch.uint8
         stats["resident_dense"] = float(not packed)
         return Resident(
             g=g,
@@ -215,6 +254,83 @@ def prepare_resident(G_or_packed, n_haplotypes, pos, device, *,
             c1_full=c1_full,
             packed=packed,
         )
+
+
+def _padded_rows(v: int, band: int, chunk: int) -> int:
+    """The resident's rows: V padded as the JAX scan pads it at the
+    tiling band x chunk, clamped as the scan clamps it."""
+    band = min(band, _round_up(v, 256))
+    chunk = min(chunk, _round_up(v, 512))
+    return _round_up(v, max(band, chunk)) + max(band, chunk)
+
+
+def _gather_resident(src, cols, dev, resident, band, chunk, stats):
+    """:func:`prepare_resident` for packed rows: (g, c1_full)."""
+    src = np.asarray(src, dtype=np.uint8)
+    if not src.flags.c_contiguous:
+        src = np.ascontiguousarray(src)
+    v, b = src.shape
+    cols = scan_columns(cols, b)
+    n_cols = 8 * b if cols is None else cols.size
+    w = _round_up(-(-n_cols // 8), 128)
+    v_pad = _padded_rows(v, band, chunk)
+    dense = resident != "packed" and (
+        resident == "dense" or v_pad * w * 8 <= dense_resident_limit())
+    g = torch.empty((v_pad, w * 8 if dense else w),
+                    dtype=torch.int8 if dense else torch.uint8, device=dev)
+    g[v:].zero_()
+    counts = torch.empty((v,), dtype=torch.int32, device=dev)
+    cols_dev = (None if cols is None
+                else torch.from_numpy(cols.astype(np.int32)).to(dev))
+    rows = max(1, min(_STAGE_ROWS, v))
+    on_card = dev.type == "cuda"
+    if on_card:
+        # two pinned staging buffers and their device twins: the host
+        # fills one while the other's copy runs; a buffer is filled again
+        # once the copy that read it has finished (``freed``), a device
+        # twin once the stream's earlier gather has read it
+        stage = [torch.empty((rows * b,), dtype=torch.uint8,
+                             pin_memory=True) for _ in range(2)]
+        landing = [torch.empty((rows * b,), dtype=torch.uint8, device=dev)
+                   for _ in range(2)]
+        freed = [None, None]
+        stream = torch.cuda.current_stream(dev)
+        timed = []
+        _cuda_build.lib()  # built (a checkout's first scan) before any event
+    gather_rows_s = 0.0
+    for k, r0 in enumerate(range(0, v, rows)):
+        n = min(rows, v - r0)
+        out, cnt = g[r0:r0 + n], counts[r0:r0 + n]
+        if not on_card:
+            t0 = time.perf_counter()
+            gather_rows_device(torch.from_numpy(np.array(src[r0:r0 + n])),
+                               cols_dev, out, cnt)
+            gather_rows_s += time.perf_counter() - t0
+            continue
+        slot = k % 2
+        if freed[slot] is not None:
+            freed[slot].synchronize()
+        with span("scan.upload_host", stats, "upload_host_s"):
+            np.copyto(stage[slot][:n * b].numpy().reshape(n, b),
+                      src[r0:r0 + n])
+        with span("scan.upload_copy", stats, "upload_copy_s"):
+            rows_dev = landing[slot][:n * b].view(n, b)
+            rows_dev.copy_(stage[slot][:n * b].view(n, b), non_blocking=True)
+            freed[slot] = torch.cuda.Event()
+            freed[slot].record(stream)
+            events = (torch.cuda.Event(enable_timing=True),
+                      torch.cuda.Event(enable_timing=True))
+            events[0].record(stream)
+            gather_rows_device(rows_dev, cols_dev, out, cnt)
+            events[1].record(stream)
+            timed.append(events)
+    with span("scan.upload_copy", stats, "upload_copy_s"):
+        c1_full = counts.cpu().numpy().astype(np.int64)
+    if on_card:
+        gather_rows_s = sum(a.elapsed_time(z) for a, z in timed) / 1e3
+    stats["gather_rows_s"] = stats.get("gather_rows_s", 0.0) + gather_rows_s
+    stats["resident_gather"] = 1.0
+    return g, c1_full
 
 
 # Device-resident scan inputs cached across calls: a repeat scan of the
@@ -394,6 +510,7 @@ def stream_threshold_scan(
     n_haplotypes=None,
     *,
     G_packed=None,
+    cols=None,
     measure: str = "r_square",
     thres: float,
     max_dist=None,
@@ -412,7 +529,10 @@ def stream_threshold_scan(
     """Scan all lower-triangle pairs of G; keep measure >= thres.
 
     Input is ``G`` (int8 (V, H) {0,1}) or ``G_packed`` (the store's
-    bitpacked uint8 (V, ceil(H/8)) with ``n_haplotypes``).  The device
+    bitpacked uint8 (V, ceil(H/8)) rows) with ``n_haplotypes``, or with
+    ``cols``, a cohort's bit columns of those rows (``n_haplotypes``
+    defaults to their number), which the upload gathers on the device
+    (:func:`prepare_resident`).  The device
     filter compares exact scaled integers one 4-dp rounding step below
     ``thres``; ``exact=True`` re-finishes the hits in f64 and re-filters
     on the rounded values (the reference's post-rounding threshold).
@@ -448,7 +568,9 @@ def stream_threshold_scan(
 
     ``ScanHits.stats`` holds each phase's seconds, each phase a span
     (``utils.profiling.span``, named ``scan.<phase>``): ``host_prep_s``,
-    ``upload_s`` (its parts ``upload_host_s`` and ``upload_copy_s``),
+    ``upload_s`` (its parts ``upload_host_s`` and ``upload_copy_s``; the
+    resident's gather ``gather_rows_s`` and ``resident_gather``, where
+    this scan uploaded: :func:`prepare_resident`),
     ``plan_s``, ``count_s`` (pass 1's launches and the waits for its
     counts), ``fetch_s`` (pass 2), ``finish_s`` (``gather_s`` inside it for
     a cooperative scan), and the work's counts (``resident_bytes``,
@@ -478,11 +600,20 @@ def stream_threshold_scan(
         packed = G_packed is not None
         if packed:
             src = np.ascontiguousarray(G_packed, dtype=np.uint8)
+            cols = scan_columns(cols, src.shape[1])
+            if cols is not None:
+                if n_haplotypes is None:
+                    n_haplotypes = cols.size
+                elif int(n_haplotypes) != cols.size:
+                    raise ValueError(f"n_haplotypes {n_haplotypes} is not "
+                                     f"the {cols.size} columns of cols")
             if n_haplotypes is None:
                 raise ValueError("G_packed requires n_haplotypes")
             v = src.shape[0]
             h = int(n_haplotypes)
         else:
+            if cols is not None:
+                raise ValueError("cols selects bit columns of G_packed")
             src = np.asarray(G, dtype=np.int8)
             v, h = src.shape
             if n_haplotypes is None:
@@ -526,7 +657,7 @@ def stream_threshold_scan(
             cache_key = (
                 resident_key, packed, v, h, int(n_haplotypes), band, chunk,
                 layout, tuple(str(d) for d in dict.fromkeys(devices)),
-                pos_sha,
+                pos_sha, _cols_sha(cols),
             )
         res = (_resident_cache_get(cache_key) if cache_key is not None
                else None)
@@ -535,7 +666,7 @@ def stream_threshold_scan(
         fresh = res is None
         if fresh:
             res = prepare_resident(
-                src, n_haplotypes, pos, dev, packed=packed,
+                src, n_haplotypes, pos, dev, packed=packed, cols=cols,
                 resident=resident, band=band, chunk=chunk, stats=stats)
         with span("scan.upload_copy", stats, "upload_copy_s"):
             if fresh:
@@ -581,12 +712,14 @@ def stream_threshold_scan(
             os.makedirs(checkpoint_dir, exist_ok=True)
             # what JAX's fingerprint hashes (ld_stream.py:1197-1204), a tag
             # of the port's own and the rest of its tiling; (n_proc,
-            # proc_idx) make a cooperative scan's files per process
+            # proc_idx) make a cooperative scan's files per process, and
+            # a cohort's column list, where one was given, its cohort's
             fp = hashlib.sha256(repr((
                 "torch-v1", want, v, h, n_hap, measure, thres, max_dist,
                 band, chunk, count_block, max_tiles_per_call, pos_sha,
                 n_proc, proc_idx,
-            )).encode()).hexdigest()[:16]
+            ) + (() if cols is None else (_cols_sha(cols),))
+            ).encode()).hexdigest()[:16]
 
             def ckpt(k):
                 return os.path.join(checkpoint_dir,

@@ -72,15 +72,16 @@ class ScanReport:
     """What one chromosome's scan wrote, with its phase stats: the scan
     driver's (``ScanHits.stats``; a mixed-ploidy chromosome's summed over
     its segments, with its rectangles'), and the tool's own: ``open_s``
-    (store open, cohort layout, any column repack), ``write_s`` (the TSV)
+    (store open, cohort layout), ``write_s`` (the TSV)
     with its parts ``format_s`` (the measures' strings) and ``emit_s``
     (the gathers, columns and lines, written), ``tsv_bytes``, and
     ``spanned_s``, the seconds of the scan that a program span names.
     A chromosome of one ploidy profile also reports its cohort:
-    ``cohort_repack_s`` (the host repack of a subset's bit columns, inside
-    ``open_s``; 0 where the cohort is the store's full layout, read
-    zero-copy), ``cohort_haplotypes`` (the haplotypes scanned) and
-    ``repack_rows`` (the rows repacked: V, or 0 zero-copy)."""
+    ``cohort_repack_s`` (the gather of a subset's bit columns on the
+    device, the scan's ``gather_rows_s``, inside ``upload_s``; 0 where the
+    cohort is the store's full layout, read zero-copy),
+    ``cohort_haplotypes`` (the haplotypes scanned) and ``repack_rows``
+    (the rows gathered to the subset's columns: V, or 0 zero-copy)."""
 
     chrom: str
     path: str
@@ -148,14 +149,16 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
     """Mixed-ploidy (chrX) scan (tools/scan.py _scan_mixed_chromosome):
     segment the variant axis into maximal runs of one ploidy profile,
     scan each run's triangle with its own live-column layout
-    (stream_threshold_scan: K5/K3 or K6/K4, over ``-d``'s shards where
+    (stream_threshold_scan on the run's store rows and its profile's
+    columns: the gather, then K5/K3 or K6/K4, over ``-d``'s shards where
     given), and sweep the cross-run rectangles in blocks of 2,048 rows
     through the engine's counts and the f64 finish (reference
     zip-truncation semantics, calc_ld.py:30-33).  Hits are merged and
     sorted by (i, j).  The stats hold the segment scans' numeric stats
     summed (phases, blocks; ``resident_packed`` counts the packed
-    segments, ``resident_dense`` the int8 ones), ``segments``, ``rects``,
-    ``repack_s`` (every column repack), ``merge_s`` and the rectangles'
+    segments, ``resident_dense`` the int8 ones, ``resident_gather`` the
+    gathered ones), ``segments``, ``rects``, ``repack_s`` (the
+    rectangles' host column repacks), ``merge_s`` and the rectangles'
     ``rect_dispatch_s`` and ``rect_finish_s``, with its parts
     ``rect_wait_s`` (the engine's candidates arriving) and
     ``rect_exact_s`` (their f64 finish), and the counters ``rect_cells``
@@ -183,19 +186,15 @@ def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
     parts = []
     stats = {"repack_s": 0.0}
 
-    def compact_seg(s0, s1, gid):
-        with span("scanx.repack", stats, "repack_s"):
-            return pack.pack_columns(
-                np.ascontiguousarray(cd.packed[s0:s1]),
-                cp.cols_for(gid), cd.n_haplotypes,
-            )
-
     for s0, s1 in segs:
         if s1 - s0 < 2:
             continue
         gid = int(pgroup[s0])
+        # the segment's store rows, its profile's columns gathered from
+        # them on the device
         hits = stream_threshold_scan(
-            G_packed=compact_seg(s0, s1, gid),
+            G_packed=cd.packed[s0:s1],
+            cols=cp.cols_for(gid),
             n_haplotypes=cp.n_alleles(gid),
             pos=pos[s0:s1],
             measure=config.ld_measure,
@@ -422,7 +421,6 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
 
     import numpy as np
 
-    from ld_tools_tpu_torch.ingest import pack
     from ld_tools_tpu_torch.ops.ld_stream import stream_threshold_scan
 
     t_start = time.time()
@@ -438,25 +436,20 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
             )
             mixed = chrom_groups.size > 1
             if not mixed:
-                # single ploidy profile: the scan consumes the profile's
-                # live bit columns directly (full-diploid-cohort runs are
-                # zero-copy; subsets and haploid profiles repack their bit
-                # columns once)
+                # single ploidy profile: the scan takes the store's rows
+                # and the profile's live bit columns; the full diploid
+                # cohort is read zero-copy, a subset's or a haploid
+                # profile's columns are gathered on the device as the
+                # rows are uploaded
                 gid = int(chrom_groups[0]) if chrom_groups.size else 0
                 cols = cp.cols_for(gid)
-                stats["cohort_repack_s"] = 0.0
                 if cols.size == cd.n_haplotypes and np.array_equal(
                     cols, np.arange(cd.n_haplotypes)
                 ):
-                    gp, n_hap = cd.packed, cd.n_haplotypes
-                    stats["repack_rows"] = 0
+                    cols, n_hap = None, cd.n_haplotypes
                 else:
-                    with span("scan.cohort_repack", stats,
-                              "cohort_repack_s"):
-                        gp = pack.pack_columns(cd.packed, cols,
-                                               cd.n_haplotypes)
                     n_hap = cols.size
-                    stats["repack_rows"] = int(gp.shape[0])
+                stats["repack_rows"] = 0 if cols is None else cd.n_variants
                 stats["cohort_haplotypes"] = int(n_hap)
         if mixed:
             hits = _scan_mixed_chromosome(data, cd, cp, config,
@@ -465,13 +458,14 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
             log.info(
                 "scanning chr%s: %d variants x %d haplotypes (bitpacked), "
                 "%s >= %s%s on %s",
-                chrom, gp.shape[0], n_hap, config.ld_measure,
+                chrom, cd.n_variants, n_hap, config.ld_measure,
                 config.ld_low_thres,
                 f", dist <= {config.max_dist}" if config.max_dist else "",
                 config.device,
             )
             hits = stream_threshold_scan(
-                G_packed=gp,
+                G_packed=cd.packed,
+                cols=cols,
                 n_haplotypes=n_hap,
                 pos=cd.pos,
                 measure=config.ld_measure,
@@ -485,6 +479,9 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
                 device=config.device,
             )
         stats.update(hits.stats or {})
+        if not mixed:
+            stats["cohort_repack_s"] = (
+                0.0 if cols is None else stats.get("gather_rows_s", 0.0))
         if not write:
             return ScanReport(chrom=chrom, path=None,
                               n_hits=int(len(hits.i)), stats=stats)
@@ -533,10 +530,13 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
             cohort = (
                 f"; cohort_haplotypes {stats['cohort_haplotypes']}, "
                 f"repack_rows {stats['repack_rows']} "
-                f"({stats['cohort_repack_s']:.2f}s), "
-                + (f"resident_dense {stats['resident_dense']:.0f}"
+                f"({stats['cohort_repack_s']:.4f}s), "
+                + (f"resident_dense {stats['resident_dense']:.0f}, "
+                   f"resident_gather {stats['resident_gather']:.0f}"
                    if "resident_dense" in stats else "resident cached")
             )
+        elif "resident_gather" in stats:  # summed over the segments
+            cohort = f"; resident_gather {stats['resident_gather']:.0f}"
         log.info(
             "chr%s: %d/%d pairs above threshold (%.1fs, %.2f Gpairs/s; open "
             "%.2fs, write %.2fs: format %.2fs, emit %.2fs%s) -> %s",

@@ -1,7 +1,8 @@
 """The port's ld_scan over a population subset (``-e EUR``, ``-e EUR -g
-female``) on the CPU (-E torch): the cohort's bit columns repacked on the
-host (span ``scan.cohort_repack``), then scanned in the int8 or the packed
-resident layout.
+female``) on the CPU (-E torch): the cohort's bit columns gathered from
+the store's rows as they are uploaded (``gather_rows_device``'s plain
+version; stats ``cohort_repack_s``), into the int8 or the packed resident
+layout, then scanned.
 
 Each TSV is held byte for byte against the JAX tool's on the same store,
 and against a plain float64 recount of r^2 and D' for every pair of the
@@ -155,7 +156,8 @@ def test_cohort_stats_name_the_repack(store, tmp_path, pops, gend):
         assert n_hap == 30 and n_hap % 8  # a partial last byte
     for chrom, r in reports.items():
         s = r.stats
-        assert 0 < s["cohort_repack_s"] <= s["open_s"]
+        assert s["resident_gather"] == 1.0
+        assert 0 < s["cohort_repack_s"] <= s["upload_s"]
         assert s["cohort_haplotypes"] == n_hap
         assert s["repack_rows"] == CHROMS[chrom]
         assert s["resident_dense"] == 1.0  # far below the default limit
@@ -165,9 +167,64 @@ def test_the_full_cohort_is_read_zero_copy(store, tmp_path):
     reports = _scan(store, str(tmp_path / "t"), "all", "both")
     for r in reports.values():
         assert r.stats["cohort_repack_s"] == 0.0
+        assert r.stats["resident_gather"] == 1.0
         assert r.stats["repack_rows"] == 0
         assert r.stats["cohort_haplotypes"] == 2 * N_SAMPLES
         assert r.stats["resident_dense"] == 1.0
+
+
+# samples at the store's end that a super-population of their own sets
+# apart: the other five select the first 57 samples, 114 haplotypes, a
+# prefix of each row that stops inside its last byte
+TAIL = 3
+PREFIX = "AFR,AMR,EAS,EUR,SAS"
+
+
+@pytest.fixture(scope="module")
+def tail_store(tmp_path_factory):
+    d = str(tmp_path_factory.mktemp("intgen_tail"))
+    synth.generate_dataset(d, n_samples=N_SAMPLES,
+                           chrom_variant_counts=CHROMS, seed=23)
+    path = os.path.join(d, "samples.txt")
+    with open(path) as fh:
+        lines = fh.read().splitlines()
+    for k in range(len(lines) - TAIL, len(lines)):
+        name, _, _, gend = lines[k].split("\t")
+        lines[k] = "\t".join((name, "TLP", "TAIL", gend))
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")
+    prep_intgen_data(d)
+    return d
+
+
+@pytest.mark.parametrize("layout", ["int8", "packed"])
+def test_a_cohort_that_stops_inside_the_last_byte_is_byte_identical_to_jax(
+        tail_store, tmp_path, monkeypatch, layout):
+    """The cohort's columns are 0..113 of rows of 15 bytes: the same
+    bytes as the full panel's, whose last 6 bits are the samples left out.
+    The scan gathers the 114 columns (and counts them), as the JAX tool
+    repacks them."""
+    if layout == "packed":
+        monkeypatch.setenv(LIMIT, "0")
+    samples = _samples(tail_store, PREFIX, "both")
+    np.testing.assert_array_equal(samples, np.arange(N_SAMPLES - TAIL))
+    n_hap = 2 * samples.size
+    assert -(-n_hap // 8) == -(-2 * N_SAMPLES // 8) and n_hap % 8
+    want_dir, got_dir = str(tmp_path / "jax"), str(tmp_path / "torch")
+    jax_scan.run(types.SimpleNamespace(
+        chroms="all", trg_dir_path=want_dir, intgen_dir_path=tail_store,
+        skip_intgen_data_ver=True, gend_names="both", pop_names=PREFIX,
+        ld_measure="r_square", ld_low_thres=0.5, max_dist=None,
+        checkpoint_dir=None, devices=None, engine="xla"))
+    reports = _scan(tail_store, got_dir, PREFIX, "both")
+    for chrom, r in reports.items():
+        assert _tsv(got_dir, chrom) == _tsv(want_dir, chrom), chrom
+        s = r.stats
+        assert s["cohort_haplotypes"] == n_hap
+        assert s["repack_rows"] == CHROMS[chrom]
+        assert s["resident_gather"] == 1.0
+        assert s["resident_dense"] == float(layout == "int8")
+    assert sum(r.n_hits for r in reports.values()) > 0
 
 
 def test_the_repack_keeps_the_cohort_columns(store):

@@ -404,5 +404,38 @@ def test_each_site_launches_its_instance(site_name, monkeypatch):
     assert args[at_form + 1] == min(132, lk.block_tiles(nb, block, block))
     assert site.launches == 1
     assert {f.__name__ for f in lk.LAUNCH_SITES} == set(_ROUTES) | {
-        "ld_band_count", "ld_band_count_packed", "ld_band_count_sharded"}
+        "ld_band_count", "ld_band_count_packed", "ld_band_count_sharded",
+        "gather_rows_device"}
+    lk.reset_launches()
+
+
+@pytest.mark.parametrize("cols", [None, [5, 0, 9]])
+@pytest.mark.parametrize("dense", [True, False])
+def test_gather_site_launches_its_entry(monkeypatch, cols, dense):
+    """gather_rows_device reaches ldk_gather_rows with the rows, the list
+    (NULL for every column), the columns a row gets, the layout, the
+    output width and a grid of a few blocks an SM; the prototype's
+    arguments but the stream, which _launch appends."""
+    calls = []
+
+    def launch(entry, dev, *args):
+        calls.append((entry, args))
+        return 0
+
+    monkeypatch.setattr(lk, "_launch", launch)
+    monkeypatch.setattr(lk, "_on_card", lambda *tensors: True)
+    monkeypatch.setattr(lk, "_sm_count", lambda dev: 132)
+    lk.reset_launches()
+    src = torch.zeros((100, 3), dtype=torch.uint8)
+    c = None if cols is None else torch.tensor(cols, dtype=torch.int32)
+    out = torch.zeros((100, 32), dtype=torch.int8 if dense else torch.uint8)
+    counts = torch.zeros((100,), dtype=torch.int32)
+    lk.gather_rows_device(src, c, out, counts)
+    ((entry, args),) = calls
+    assert entry == "ldk_gather_rows"
+    assert len(args) == len(_cuda_build._SIGNATURES[entry]) - 1
+    assert args[1:3] == (100, 3)
+    assert (args[3] is None) == (cols is None)
+    assert args[4:8] == (24 if cols is None else 3, int(dense), 32, 13)
+    assert lk.gather_rows_device.launches == 1
     lk.reset_launches()

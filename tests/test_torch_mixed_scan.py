@@ -104,6 +104,9 @@ def test_chrx_scan_tsv_is_byte_identical(xstore, tmp_path, monkeypatch,
         assert st["rect_candidates"] == st["rect_cells"]
     assert (f"rect_candidates {st['rect_candidates']} of rect_cells "
             f"{st['rect_cells']}") in caplog.text
+    # every segment's resident gathered from the store's rows on upload
+    assert st["resident_gather"] == st["segments"]
+    assert f"resident_gather {st['segments']}" in caplog.text
 
 
 @pytest.mark.parametrize("gend_names", ["male", "both"])
@@ -115,6 +118,7 @@ def test_chry_scan_tsv_is_byte_identical(xstore, tmp_path, gend_names):
         xstore, str(tmp_path / "torch"), "Y", gend_names=gend_names))
     assert open(report.path, "rb").read() == want and report.n_hits > 0
     assert "segments" not in report.stats
+    assert report.stats["resident_gather"] == 1.0
 
 
 def test_chrx_scan_over_a_mesh_is_byte_identical(xstore, tmp_path):

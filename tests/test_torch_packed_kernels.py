@@ -229,8 +229,11 @@ def test_packed_plain_versions_count_no_launch(rng):
         for t in (gp, c1t, ipqt, torch.from_numpy(pos))), cij, [h, 0], [0.5],
                              packed=True, sel=0, exact_mask=True,
                              use_dist=False, block_m=16, block_n=16)
+    tk.gather_rows_device(gp, torch.arange(8, dtype=torch.int32),
+                          torch.zeros((gp.shape[0], 16), dtype=torch.int8),
+                          torch.zeros((gp.shape[0],), dtype=torch.int32))
     assert all(site.launches == 0 for site in tk.LAUNCH_SITES)
-    assert len(tk.LAUNCH_SITES) == 10
+    assert len(tk.LAUNCH_SITES) == 11
 
 
 def test_packed_sites_take_only_bytes_and_widths_of_16():
