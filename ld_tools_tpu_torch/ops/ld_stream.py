@@ -126,6 +126,15 @@ class ScanHits:
     exact: bool = False
     stats: dict = None  # per-phase seconds and block counts
 
+    @classmethod
+    def empty(cls, exact: bool, stats: dict = None) -> "ScanHits":
+        """No hits, with every array's dtype."""
+        z = np.zeros((0,))
+        return cls(i=z.astype(np.int64), j=z.astype(np.int64), r_square=z,
+                   d_prime=z, r_square_is_int_zero=z.astype(bool),
+                   d_prime_is_int_zero=z.astype(bool), exact=exact,
+                   stats=stats)
+
 
 @dataclasses.dataclass
 class Resident:
@@ -622,7 +631,7 @@ def stream_threshold_scan(
             raise ValueError(
                 f"measure must be 'r_square' or 'd_prime', got {measure!r}")
         if v == 0:
-            return _empty_hits(exact, stats)
+            return ScanHits.empty(exact, stats)
         if pos is None:
             pos = np.arange(v, dtype=np.int64)
         pos = np.asarray(pos, dtype=np.int64)
@@ -830,7 +839,7 @@ def stream_threshold_scan(
             with span("scan.gather", stats, "gather_s"):
                 arrs = _allgather_hits(arrs, want)
         if arrs["i"].size == 0:
-            return _empty_hits(exact, stats)
+            return ScanHits.empty(exact, stats)
         order = np.lexsort((arrs["j"], arrs["i"]))
         arrs = {name: a[order] for name, a in arrs.items()}
         if not exact:
@@ -838,9 +847,9 @@ def stream_threshold_scan(
                               d_prime=arrs["dp"], exact=False)
         else:
             result = _exact_refilter_counts(
-                arrs["cab"], main.c1_full, n_haplotypes, arrs["i"],
-                arrs["j"], measure, thres,
-            )
+                arrs["cab"], main.c1_full[arrs["i"]],
+                main.c1_full[arrs["j"]], n_haplotypes, arrs["i"], arrs["j"],
+                measure, thres)
     result.stats = stats
     log.info("scan phases: %s", " ".join(f"{k}={_fmt(x)}"
                                           for k, x in stats.items()))
@@ -904,22 +913,16 @@ def _sync(dev: torch.device) -> None:
         torch.cuda.synchronize(dev)
 
 
-def _empty_hits(exact: bool, stats: dict) -> ScanHits:
-    z = np.zeros((0,))
-    zi = z.astype(np.int64)
-    return ScanHits(i=zi, j=zi, r_square=z, d_prime=z,
-                    r_square_is_int_zero=z.astype(bool),
-                    d_prime_is_int_zero=z.astype(bool), exact=exact,
-                    stats=stats)
-
-
-def _exact_refilter_counts(
-    cab, c1_full, n_hap, i, j, measure, thres
-) -> ScanHits:
-    """Re-finish hits in f64 straight from exact integer counts; filter on
-    the rounded values (the reference thresholds post-rounding,
-    ld_area.py:248).  Pure elementwise f64 over the hits."""
-    exact = exact_ld_elementwise(cab, c1_full[i], c1_full[j], n_hap)
+def _exact_refilter_counts(cab, c1, c2, n_hap, i, j, measure, thres,
+                           len1=None, len2=None) -> ScanHits:
+    """Finish pairs (i, j) in f64 from their integer counts: ``cab`` each
+    pair's count, ``c1`` / ``c2`` its two alt counts, over lists of
+    ``len1`` / ``len2`` where they differ from ``n_hap`` (a cross-ploidy
+    pair, :func:`exact.exact_ld_elementwise`); keep those whose value,
+    rounded as the reference rounds it with the int-0 sentinels, is
+    ``>= thres`` (the reference thresholds post-rounding, ld_area.py:248).
+    Pure elementwise f64 over the pairs, in their order."""
+    exact = exact_ld_elementwise(cab, c1, c2, n_hap, len1=len1, len2=len2)
     meas = exact.r_square if measure == "r_square" else exact.d_prime
     int_zero = (
         exact.r_square_is_int_zero

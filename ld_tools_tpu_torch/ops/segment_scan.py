@@ -1,0 +1,245 @@
+"""A chromosome's scan over its ploidy segments: one sorted, finished hit
+set from the store's packed rows.
+
+A segment is a maximal run of rows of one ploidy profile, with that
+profile's bit columns of the store's rows.  A chromosome of one profile
+is one segment over all its rows: one streamed scan
+(:func:`ld_stream.stream_threshold_scan`).  A mixed-ploidy chromosome
+(chrX, chrY) scans each segment's triangle the same way, then sweeps
+every cross-segment rectangle (i from the later segment, j from the
+earlier one) in blocks of rows through the engine's counts and threshold
+test with each side's own list length (the reference's zip truncation,
+calc_ld.py:30-33); only the cells that pass are finished in f64.  The
+parts meet in one merge, sorted by (i, j).
+
+The streamed scan, its f64 finish and the column repack are looked up
+through their modules at each call, so that whatever wraps them there (a
+trace's spans, a fault injection) sees every call.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from ld_tools_tpu_torch.ingest import pack
+from ld_tools_tpu_torch.ops import engine, ld_stream
+from ld_tools_tpu_torch.ops.ld_kernels import KEEP_MARGIN
+from ld_tools_tpu_torch.ops.ld_stream import ScanHits
+from ld_tools_tpu_torch.utils.distributed import process_count, process_index
+from ld_tools_tpu_torch.utils.logging import get_logger
+from ld_tools_tpu_torch.utils.profiling import span
+
+log = get_logger("ops.segment_scan")
+
+# rows of a rectangle's block; each block meets the earlier segment in
+# column chunks four blocks tall
+_RECT_ROWS = 2048
+
+_FIELDS = ("i", "j", "r_square", "d_prime", "r_square_is_int_zero",
+           "d_prime_is_int_zero")
+
+
+@dataclasses.dataclass(frozen=True)
+class Segment:
+    """Rows ``[start, stop)`` of one ploidy profile: ``cols`` the
+    profile's bit columns of the store's rows (None: the store's full
+    layout, read zero-copy) and ``n_alleles`` their number."""
+
+    start: int
+    stop: int
+    cols: object
+    n_alleles: int
+
+
+def scan_segments(packed, pos, segments, n_haplotypes, *, measure, thres,
+                  max_dist=None, checkpoint_dir=None, mesh=None,
+                  multiprocess=False, resident_key=None,
+                  device="cuda") -> ScanHits:
+    """Scan a chromosome's store rows ``packed`` (V, B) at positions
+    ``pos`` over its ``segments`` (:class:`Segment`, in row order, covering
+    every row); ``n_haplotypes`` is the store's own count, the layout the
+    rectangles repack from.  The other arguments are
+    :func:`ld_stream.stream_threshold_scan`'s.  Returns the exact hits,
+    sorted by (i, j), with i > j indexing the chromosome's rows.
+
+    One segment is one streamed scan, its stats as they are.  Several add
+    up the segment scans' numeric stats (phases, blocks;
+    ``resident_packed`` counts the packed segments, ``resident_dense`` the
+    int8 ones, ``resident_gather`` the gathered ones) and report
+    ``segments``, ``rects``, ``repack_s`` (the rectangles' host column
+    repacks), ``merge_s`` and the rectangles' ``rect_dispatch_s`` and
+    ``rect_finish_s``, with its parts ``rect_wait_s`` (the engine's
+    candidates arriving) and ``rect_exact_s`` (their f64 finish), and the
+    counters ``rect_cells`` (cells the rectangles' counts covered) and
+    ``rect_candidates`` (cells the engine's threshold test passed).  Each
+    segment checkpoints on its own (fingerprinted by its content); the
+    rectangles recompute on resume."""
+    pos = np.asarray(pos)
+
+    def scan(seg, key):
+        return ld_stream.stream_threshold_scan(
+            G_packed=packed[seg.start:seg.stop], cols=seg.cols,
+            n_haplotypes=seg.n_alleles, pos=pos[seg.start:seg.stop],
+            measure=measure, thres=thres, max_dist=max_dist, exact=True,
+            checkpoint_dir=checkpoint_dir, mesh=mesh,
+            multiprocess=multiprocess, resident_key=key, device=device)
+
+    if len(segments) == 1:
+        return scan(segments[0], resident_key)
+
+    stats = {"repack_s": 0.0}
+    parts = []
+    for seg in segments:
+        if seg.stop - seg.start < 2:
+            continue
+        hits = scan(seg, None if resident_key is None
+                    else tuple(resident_key) + ("seg", seg.start, seg.stop))
+        for k, v in hits.stats.items():
+            if isinstance(v, (int, float)):  # phases and counts: summed
+                stats[k] = stats.get(k, 0) + v
+        parts.append(dataclasses.replace(hits, i=hits.i + seg.start,
+                                         j=hits.j + seg.start))
+    n_proc, proc_idx = ((process_count(), process_index()) if multiprocess
+                        else (1, 0))
+    rects = _rectangle_hits(packed, pos, segments, n_haplotypes, measure,
+                            thres, max_dist, n_proc, proc_idx, device, stats)
+    stats["segments"] = len(segments)
+
+    with span("scanx.merge", stats, "merge_s"):
+        if n_proc > 1:
+            # the rectangles' strided hits meet in one collective, which
+            # every process joins, hit-less ones included; the segment
+            # scans' hits are already the same on every process
+            mine = _merge(rects)
+            rects = [ScanHits(exact=True, **ld_stream._allgather_hits(
+                {f: getattr(mine, f) for f in _FIELDS}, _FIELDS[2:]))]
+        return _merge(parts + rects, stats)
+
+
+def _merge(parts, stats=None) -> ScanHits:
+    """Finished hit parts as one ScanHits, sorted by (i, j)."""
+    if not parts:
+        return ScanHits.empty(True, stats)
+    cat = {f: np.concatenate([getattr(p, f) for p in parts])
+           for f in _FIELDS}
+    order = np.lexsort((cat["j"], cat["i"]))
+    return ScanHits(exact=True, stats=stats,
+                    **{f: a[order] for f, a in cat.items()})
+
+
+def _rectangle_hits(packed, pos, segments, n_haplotypes, measure, thres,
+                    max_dist, n_proc, proc_idx, device, stats) -> list:
+    """The finished hit parts of this process's cross-segment rectangles,
+    restricted to the ``max_dist`` corner.
+
+    Loop order is later segment -> row block -> earlier segment: each row
+    block is repacked once, and each earlier segment's columns once and
+    kept.  Two-slot pipeline: pulling job k+1 from the generator launches
+    its counts and threshold test (after its host unpacking) while job
+    k's candidates are finished in f64 on the host; the engine launches on
+    a side stream, so the card works between rectangles.  Under a
+    cooperative scan the jobs stride across the ``n_proc`` processes."""
+    sel = 0 if measure == "r_square" else 1
+    mask_thres = float(thres) - KEEP_MARGIN
+    earlier = {}
+
+    def columns(seg, r0, r1):
+        cols = np.arange(seg.n_alleles) if seg.cols is None else seg.cols
+        with span("scanx.repack", stats, "repack_s"):
+            return pack.pack_columns(np.ascontiguousarray(packed[r0:r1]),
+                                     cols, n_haplotypes)
+
+    def jobs():
+        job_idx = 0
+        for bi in range(1, len(segments)):
+            seg_i = segments[bi]
+            B0, B1, n_i = seg_i.start, seg_i.stop, seg_i.n_alleles
+            # distance-clipped bounds per earlier segment (positions
+            # ascend): j rows must reach within max_dist of the first i
+            # row, and i rows within max_dist of the last j row
+            clipped = []
+            b1_max = B0
+            for ai in range(bi):
+                A0, A1 = segments[ai].start, segments[ai].stop
+                a0, a1, b1 = A0, A1, B1
+                if max_dist is not None:
+                    a0 = A0 + int(np.searchsorted(pos[A0:A1],
+                                                  pos[B0] - max_dist))
+                    b1 = B0 + int(np.searchsorted(
+                        pos[B0:B1], pos[A1 - 1] + max_dist, side="right"))
+                    if a0 >= a1 or B0 >= b1:
+                        continue
+                clipped.append((ai, a0, a1, b1))
+                b1_max = max(b1_max, b1)
+            for r0 in range(B0, b1_max, _RECT_ROWS):
+                r1_max = min(r0 + _RECT_ROWS, b1_max)
+                Ci = np.unpackbits(columns(seg_i, r0, r1_max), axis=1,
+                                   count=n_i).astype(np.int8)
+                c1_rows_full = Ci.sum(axis=1, dtype=np.int64)
+                for ai, a0, a1, b1 in clipped:
+                    if r0 >= b1:
+                        continue
+                    r1 = min(r1_max, b1)
+                    seg_j = segments[ai]
+                    A0, n_j = seg_j.start, seg_j.n_alleles
+                    m = min(n_i, n_j)
+                    if ai not in earlier:
+                        earlier[ai] = columns(seg_j, A0, seg_j.stop)
+                    for c0 in range(a0, a1, 4 * _RECT_ROWS):
+                        c1_stop = min(c0 + 4 * _RECT_ROWS, a1)
+                        if max_dist is not None and (
+                                pos[c1_stop - 1] < pos[r0] - max_dist):
+                            continue
+                        job_idx += 1
+                        if (job_idx - 1) % n_proc != proc_idx:
+                            continue  # another process owns this one
+                        Cj = np.unpackbits(earlier[ai][c0 - A0:c1_stop - A0],
+                                           axis=1, count=n_j).astype(np.int8)
+                        c1_rows = c1_rows_full[:r1 - r0]
+                        c1_cols = Cj.sum(axis=1, dtype=np.int64)
+                        fin = engine.rect_candidates_async(
+                            Ci[:r1 - r0, :m], Cj[:, :m], c1_rows, c1_cols,
+                            n_i, n_j, mask_thres, sel, pos1=pos[r0:r1],
+                            pos2=pos[c0:c1_stop], max_dist=max_dist,
+                            device=device)
+                        yield (r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows,
+                               c1_cols, fin)
+
+    parts = []
+
+    def finish(job):
+        r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows, c1_cols, fin = job
+        with span("engine.wait", stats, "rect_wait_s"):
+            rows, cols, c_ab = fin()
+        stats["rect_cells"] += (r1 - r0) * (c1_stop - c0)
+        stats["rect_candidates"] += int(rows.size)
+        if rows.size:
+            with span("scanx.rect_exact", stats, "rect_exact_s"):
+                parts.append(ld_stream._exact_refilter_counts(
+                    c_ab, c1_rows[rows], c1_cols[cols], m, rows + r0,
+                    cols + c0, measure, thres, len1=n_i, len2=n_j))
+
+    stats.update(rect_dispatch_s=0.0, rect_finish_s=0.0, rect_wait_s=0.0,
+                 rect_exact_s=0.0, rects=0, rect_cells=0, rect_candidates=0)
+    pending = None
+    it = jobs()
+    while True:
+        with span("scanx.rect_dispatch", stats, "rect_dispatch_s"):
+            job = next(it, None)
+        if pending is not None:
+            with span("scanx.rect_finish", stats, "rect_finish_s"):
+                finish(pending)
+            stats["rects"] += 1
+        if job is None:
+            break
+        pending = job
+    if stats["rects"]:
+        log.info(
+            "cross-segment rectangles: %d blocks, dispatch %.2fs "
+            "(overlapped), finish %.2fs; rect_candidates %d of "
+            "rect_cells %d", stats["rects"], stats["rect_dispatch_s"],
+            stats["rect_finish_s"], stats["rect_candidates"],
+            stats["rect_cells"])
+    return parts

@@ -89,18 +89,14 @@ class ScanReport:
     stats: dict
 
 
-def _resident_key(data: DataConfig, cd, extra=()):
+def _resident_key(data: DataConfig, cd):
     """Cache identity for the scan's device-resident inputs: store path +
-    gt.npy mtime (the bytes' identity) + chromosome + cohort fingerprint."""
+    the packed rows' file mtime (the bytes' identity) + chromosome +
+    cohort fingerprint."""
     import hashlib
 
-    from ld_tools_tpu_torch.ingest import pack
-
-    gt_path = os.path.join(
-        pack.chrom_dir(data.intgen_dir_path, cd.chrom), "gt.npy"
-    )
     try:
-        mtime = os.path.getmtime(gt_path)
+        mtime = os.path.getmtime(cd.packed.filename)
     except OSError:
         mtime = None
     cohort_fp = hashlib.sha256(
@@ -108,304 +104,33 @@ def _resident_key(data: DataConfig, cd, extra=()):
     ).hexdigest()[:16]
     return (
         os.path.abspath(data.intgen_dir_path), cd.chrom, mtime, cohort_fp,
-    ) + tuple(extra)
+    )
 
 
-def rect_hits(cands, r0, c0, c1_rows, c1_cols, n_hap, len1, len2,
-              measure, thres, stats):
-    """The hits of one cross-segment rectangle from the engine's
-    candidates (``rect_candidates_async``: cell offsets and their counts):
-    the f64 finish with each side's own list length (span
-    ``scanx.rect_exact``, ``stats["rect_exact_s"]``), round(x, 4) with the
-    int 0 sentinels, ``>= thres``.  Returns (i, j, r2, dp, r2_iz, dp_iz)
-    in the cells' order, or None where none is kept."""
+def ploidy_segments(cd, sample_names) -> list:
+    """The chromosome's maximal runs of one ploidy profile for a cohort, as
+    the segment scan takes them (:class:`ops.segment_scan.Segment`):
+    each run's rows, its profile's live bit columns and their number.  The
+    columns are None where they are the store's full layout (the full
+    diploid cohort, read zero-copy); a subset's or a haploid profile's are
+    gathered on the device as the rows are uploaded.  One profile is one
+    segment over every row."""
     import numpy as np
 
-    from ld_tools_tpu_torch.ops.exact import exact_ld_elementwise, round4
+    from ld_tools_tpu_torch.ops.segment_scan import Segment
 
-    rows, cols, c_ab = cands
-    if rows.size == 0:
-        return None
-    with span("scanx.rect_exact", stats, "rect_exact_s"):
-        ex = exact_ld_elementwise(c_ab, c1_rows[rows], c1_cols[cols], n_hap,
-                                  len1=len1, len2=len2)
-    if measure == "r_square":
-        meas, int_zero = ex.r_square, ex.r_square_is_int_zero
-    else:
-        meas, int_zero = ex.d_prime, ex.d_prime_is_int_zero
-    rounded = round4(meas)
-    rounded[int_zero] = 0.0
-    keep = rounded >= thres
-    if not keep.any():
-        return None
-    return ((rows[keep] + r0).astype(np.int64),
-            (cols[keep] + c0).astype(np.int64),
-            ex.r_square[keep], ex.d_prime[keep],
-            ex.r_square_is_int_zero[keep], ex.d_prime_is_int_zero[keep])
-
-
-def _scan_mixed_chromosome(data, cd, cp, config: ScanConfig,
-                           multiprocess: bool = False):
-    """Mixed-ploidy (chrX) scan (tools/scan.py _scan_mixed_chromosome):
-    segment the variant axis into maximal runs of one ploidy profile,
-    scan each run's triangle with its own live-column layout
-    (stream_threshold_scan on the run's store rows and its profile's
-    columns: the gather, then K5/K3 or K6/K4, over ``-d``'s shards where
-    given), and sweep the cross-run rectangles in blocks of 2,048 rows
-    through the engine's counts and the f64 finish (reference
-    zip-truncation semantics, calc_ld.py:30-33).  Hits are merged and
-    sorted by (i, j).  The stats hold the segment scans' numeric stats
-    summed (phases, blocks; ``resident_packed`` counts the packed
-    segments, ``resident_dense`` the int8 ones, ``resident_gather`` the
-    gathered ones), ``segments``, ``rects``, ``repack_s`` (the
-    rectangles' host column repacks), ``merge_s`` and the rectangles'
-    ``rect_dispatch_s`` and ``rect_finish_s``, with its parts
-    ``rect_wait_s`` (the engine's candidates arriving) and
-    ``rect_exact_s`` (their f64 finish), and the counters ``rect_cells``
-    (cells the rectangles' counts covered) and ``rect_candidates`` (cells
-    the engine's threshold test passed).
-    """
-    import numpy as np
-
-    from ld_tools_tpu_torch.ingest import pack
-    from ld_tools_tpu_torch.ops.engine import rect_candidates_async
-    from ld_tools_tpu_torch.ops.ld_kernels import KEEP_MARGIN
-    from ld_tools_tpu_torch.ops.ld_stream import ScanHits, stream_threshold_scan
-    from ld_tools_tpu_torch.utils.distributed import (process_count,
-                                                      process_index)
-
-    pos = np.asarray(cd.pos)
-    pgroup = cp.groups_of(np.arange(cd.n_variants))
-    cuts = np.flatnonzero(np.diff(pgroup)) + 1
-    starts = np.concatenate([[0], cuts]).astype(np.int64)
-    stops = np.concatenate([cuts, [cd.n_variants]]).astype(np.int64)
-    segs = list(zip(starts, stops))
-    log.info("chr%s spans %d ploidy segments; scanning per segment",
-             cd.chrom, len(segs))
-
-    parts = []
-    stats = {"repack_s": 0.0}
-
-    for s0, s1 in segs:
-        if s1 - s0 < 2:
-            continue
-        gid = int(pgroup[s0])
-        # the segment's store rows, its profile's columns gathered from
-        # them on the device
-        hits = stream_threshold_scan(
-            G_packed=cd.packed[s0:s1],
-            cols=cp.cols_for(gid),
-            n_haplotypes=cp.n_alleles(gid),
-            pos=pos[s0:s1],
-            measure=config.ld_measure,
-            thres=config.ld_low_thres,
-            max_dist=config.max_dist,
-            exact=True,
-            # per-segment checkpoints (fingerprinted by segment content);
-            # the cross-segment rectangles recompute on resume
-            checkpoint_dir=config.checkpoint_dir,
-            mesh=config.mesh(),
-            multiprocess=multiprocess,
-            resident_key=_resident_key(
-                data, cd, extra=("seg", int(s0), int(s1), gid)
-            ),
-            device=config.device,
-        )
-        for k, v in (hits.stats or {}).items():
-            if isinstance(v, (int, float)):  # phases and counts: summed
-                stats[k] = stats.get(k, 0) + v
-        parts.append((hits.i + s0, hits.j + s0, hits.r_square,
-                      hits.d_prime, hits.r_square_is_int_zero,
-                      hits.d_prime_is_int_zero))
-
-    # cross-segment rectangles (i from the later segment, j from the
-    # earlier one, preserving i > j), restricted to the max_dist corner.
-    # Two-slot pipeline: pulling job k+1 from the generator ISSUES its
-    # counts and threshold test (and does its host-side unpackbits
-    # repacking) while job k's candidates are finished in f64 on the host;
-    # the engine launches on a side stream, so the card works between
-    # rectangles.
-    # Loop order is bi -> row block -> earlier segment: each row block
-    # unpacks ONCE, and each earlier segment's packed cohort matrix is
-    # built once and cached.  Under a cooperative multiprocess scan the
-    # rectangle jobs stride across processes (the segment scans above
-    # already split their tiles) and the strided hit parts meet in one
-    # allgather.
-    block = 2048
-    n_proc = 1
-    proc_idx = 0
-    if multiprocess:
-        n_proc = process_count()
-        proc_idx = process_index()
-    rect_parts = []
-    sel = 0 if config.ld_measure == "r_square" else 1
-    mask_thres = float(config.ld_low_thres) - KEEP_MARGIN
-
-    cj_cache = {}
-
-    def seg_packed(ai, gid_j):
-        if ai not in cj_cache:
-            A0, A1 = segs[ai]
-            with span("scanx.repack", stats, "repack_s"):
-                cj_cache[ai] = pack.pack_columns(
-                    np.ascontiguousarray(cd.packed[A0:A1]),
-                    cp.cols_for(gid_j), cd.n_haplotypes,
-                )
-        return cj_cache[ai]
-
-    def rect_jobs():
-        job_idx = 0
-        for bi in range(1, len(segs)):
-            B0, B1 = segs[bi]
-            gid_i = int(pgroup[B0])
-            n_i = cp.n_alleles(gid_i)
-            # distance-clipped bounds per earlier segment (positions
-            # ascend): j rows must reach within max_dist of the first i
-            # row, and i rows within max_dist of the last j row
-            ai_infos = []
-            b1_max = B0
-            for ai in range(bi):
-                A0, A1 = segs[ai]
-                gid_j = int(pgroup[A0])
-                n_j = cp.n_alleles(gid_j)
-                a0, a1, b1 = A0, A1, B1
-                if config.max_dist is not None:
-                    a0 = A0 + int(np.searchsorted(
-                        pos[A0:A1], pos[B0] - config.max_dist
-                    ))
-                    b1 = B0 + int(np.searchsorted(
-                        pos[B0:B1], pos[A1 - 1] + config.max_dist,
-                        side="right"
-                    ))
-                    if a0 >= a1 or B0 >= b1:
-                        continue
-                ai_infos.append((ai, gid_j, n_j, a0, a1, b1, A0))
-                b1_max = max(b1_max, b1)
-            for r0 in range(B0, b1_max, block):
-                r1_max = min(r0 + block, b1_max)
-                with span("scanx.repack", stats, "repack_s"):
-                    Ci_packed = pack.pack_columns(
-                        np.ascontiguousarray(cd.packed[r0:r1_max]),
-                        cp.cols_for(gid_i), cd.n_haplotypes,
-                    )
-                Ci = np.unpackbits(Ci_packed, axis=1,
-                                   count=n_i).astype(np.int8)
-                c1_rows_full = Ci.sum(axis=1, dtype=np.int64)
-                for (ai, gid_j, n_j, a0, a1, b1, A0) in ai_infos:
-                    if r0 >= b1:
-                        continue
-                    r1 = min(r1_max, b1)
-                    m = min(n_i, n_j)
-                    Cj_full = seg_packed(ai, gid_j)
-                    for c0 in range(a0, a1, 4 * block):
-                        c1_stop = min(c0 + 4 * block, a1)
-                        if config.max_dist is not None and (
-                            pos[c1_stop - 1] < pos[r0] - config.max_dist
-                        ):
-                            continue
-                        job_idx += 1
-                        if (job_idx - 1) % n_proc != proc_idx:
-                            continue  # another process owns this one
-                        Cj = np.unpackbits(
-                            Cj_full[c0 - A0:c1_stop - A0], axis=1,
-                            count=n_j,
-                        ).astype(np.int8)
-                        c1_rows = c1_rows_full[: r1 - r0]
-                        c1_cols = Cj.sum(axis=1, dtype=np.int64)
-                        fin = rect_candidates_async(
-                            Ci[: r1 - r0, :m], Cj[:, :m], c1_rows, c1_cols,
-                            n_i, n_j, mask_thres, sel,
-                            pos1=pos[r0:r1], pos2=pos[c0:c1_stop],
-                            max_dist=config.max_dist, device=config.device,
-                        )
-                        yield (r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows,
-                               c1_cols, fin)
-
-    def finish_rect(job):
-        r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows, c1_cols, fin = job
-        with span("engine.wait", rect_stats, "rect_wait_s"):
-            cands = fin()
-        rect_stats["rect_cells"] += (r1 - r0) * (c1_stop - c0)
-        rect_stats["rect_candidates"] += int(cands[0].size)
-        part = rect_hits(cands, r0, c0, c1_rows, c1_cols, m, n_i, n_j,
-                         config.ld_measure, config.ld_low_thres, rect_stats)
-        if part is not None:
-            rect_parts.append(part)
-
-    # two-slot drive: pulling job k+1 issues it (and does its host
-    # repacking) while job k's finish runs; dispatch_s happens under the
-    # device's work
-    rect_stats = {"rect_dispatch_s": 0.0, "rect_finish_s": 0.0,
-                  "rect_wait_s": 0.0, "rect_exact_s": 0.0, "rects": 0,
-                  "rect_cells": 0, "rect_candidates": 0}
-    pending = None
-    it = rect_jobs()
-    while True:
-        with span("scanx.rect_dispatch", rect_stats, "rect_dispatch_s"):
-            job = next(it, None)
-        if pending is not None:
-            with span("scanx.rect_finish", rect_stats, "rect_finish_s"):
-                finish_rect(pending)
-            rect_stats["rects"] += 1
-        if job is None:
-            break
-        pending = job
-    if rect_stats["rects"]:
-        log.info(
-            "cross-segment rectangles: %d blocks, dispatch %.2fs "
-            "(overlapped), finish %.2fs; rect_candidates %d of "
-            "rect_cells %d",
-            rect_stats["rects"], rect_stats["rect_dispatch_s"],
-            rect_stats["rect_finish_s"], rect_stats["rect_candidates"],
-            rect_stats["rect_cells"],
-        )
-    stats.update(rect_stats, segments=len(segs))
-
-    with span("scanx.merge", stats, "merge_s"):
-        if n_proc > 1:
-            # merge the strided rectangle hits (every process joins the
-            # collective, hit-less ones included, with the same dtypes); the
-            # segment-scan parts above are already identical on every process
-            from ld_tools_tpu_torch.ops.ld_stream import _allgather_hits
-
-            names = ("i", "j", "r2", "dp", "r2_iz", "dp_iz")
-            if rect_parts:
-                arrs = {
-                    name: np.concatenate([p[k] for p in rect_parts])
-                    for k, name in enumerate(names)
-                }
-            else:
-                arrs = {
-                    "i": np.zeros(0, np.int64), "j": np.zeros(0, np.int64),
-                    "r2": np.zeros(0), "dp": np.zeros(0),
-                    "r2_iz": np.zeros(0, bool), "dp_iz": np.zeros(0, bool),
-                }
-            g = _allgather_hits(arrs, ("r2", "dp", "r2_iz", "dp_iz"))
-            parts.append((g["i"], g["j"], g["r2"], g["dp"], g["r2_iz"],
-                          g["dp_iz"]))
-        else:
-            parts.extend(rect_parts)
-
-        if parts:
-            i = np.concatenate([p[0] for p in parts])
-            j = np.concatenate([p[1] for p in parts])
-            r2 = np.concatenate([p[2] for p in parts])
-            dp = np.concatenate([p[3] for p in parts])
-            r2_iz = np.concatenate([p[4] for p in parts])
-            dp_iz = np.concatenate([p[5] for p in parts])
-            order = np.lexsort((j, i))
-            return ScanHits(
-                i=i[order], j=j[order], r_square=r2[order], d_prime=dp[order],
-                r_square_is_int_zero=r2_iz[order],
-                d_prime_is_int_zero=dp_iz[order], exact=True, stats=stats,
-            )
-        z = np.zeros(0)
-        return ScanHits(
-            i=np.zeros(0, np.int64), j=np.zeros(0, np.int64),
-            r_square=z, d_prime=z,
-            r_square_is_int_zero=np.zeros(0, bool),
-            d_prime_is_int_zero=np.zeros(0, bool), exact=True, stats=stats,
-        )
+    cp = cd.cohort_ploidy(sample_names)
+    groups = cp.groups_of(np.arange(cd.n_variants))
+    bounds = [0, *(np.flatnonzero(np.diff(groups)) + 1).tolist(),
+              cd.n_variants]
+    segments = []
+    for s0, s1 in zip(bounds[:-1], bounds[1:]):
+        cols = cp.cols_for(int(groups[s0]) if s1 > s0 else 0)
+        full = cols.size == cd.n_haplotypes and np.array_equal(
+            cols, np.arange(cd.n_haplotypes))
+        segments.append(Segment(s0, s1, None if full else cols,
+                                int(cols.size)))
+    return segments
 
 
 def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
@@ -421,67 +146,42 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
 
     import numpy as np
 
-    from ld_tools_tpu_torch.ops.ld_stream import stream_threshold_scan
+    from ld_tools_tpu_torch.ops.segment_scan import scan_segments
 
     t_start = time.time()
     stats = {}
     with span("scan.chromosome", stats, SPANNED):
         with span("scan.open", stats, "open_s"):
             cd = data.store().chrom(chrom)
-            cp = cd.cohort_ploidy(data.sample_names)
-            chrom_groups = (
-                np.zeros(1, dtype=np.int16)
-                if cp.trivial
-                else np.unique(cd.pgroup)
-            )
-            mixed = chrom_groups.size > 1
-            if not mixed:
-                # single ploidy profile: the scan takes the store's rows
-                # and the profile's live bit columns; the full diploid
-                # cohort is read zero-copy, a subset's or a haploid
-                # profile's columns are gathered on the device as the
-                # rows are uploaded
-                gid = int(chrom_groups[0]) if chrom_groups.size else 0
-                cols = cp.cols_for(gid)
-                if cols.size == cd.n_haplotypes and np.array_equal(
-                    cols, np.arange(cd.n_haplotypes)
-                ):
-                    cols, n_hap = None, cd.n_haplotypes
-                else:
-                    n_hap = cols.size
-                stats["repack_rows"] = 0 if cols is None else cd.n_variants
-                stats["cohort_haplotypes"] = int(n_hap)
-        if mixed:
-            hits = _scan_mixed_chromosome(data, cd, cp, config,
-                                          multiprocess=multiprocess)
-        else:
-            log.info(
-                "scanning chr%s: %d variants x %d haplotypes (bitpacked), "
-                "%s >= %s%s on %s",
-                chrom, cd.n_variants, n_hap, config.ld_measure,
-                config.ld_low_thres,
-                f", dist <= {config.max_dist}" if config.max_dist else "",
-                config.device,
-            )
-            hits = stream_threshold_scan(
-                G_packed=cd.packed,
-                cols=cols,
-                n_haplotypes=n_hap,
-                pos=cd.pos,
-                measure=config.ld_measure,
-                thres=config.ld_low_thres,
-                max_dist=config.max_dist,
-                exact=True,
-                checkpoint_dir=config.checkpoint_dir,
-                mesh=config.mesh(),
-                multiprocess=multiprocess,
-                resident_key=_resident_key(data, cd),
-                device=config.device,
-            )
-        stats.update(hits.stats or {})
-        if not mixed:
-            stats["cohort_repack_s"] = (
-                0.0 if cols is None else stats.get("gather_rows_s", 0.0))
+            segments = ploidy_segments(cd, data.sample_names)
+        log.info(
+            "scanning chr%s: %d variants in %d ploidy segment(s) of %s "
+            "haplotypes (bitpacked), %s >= %s%s on %s",
+            chrom, cd.n_variants, len(segments),
+            ",".join(str(s.n_alleles) for s in segments), config.ld_measure,
+            config.ld_low_thres,
+            f", dist <= {config.max_dist}" if config.max_dist else "",
+            config.device,
+        )
+        hits = scan_segments(
+            cd.packed, cd.pos, segments, cd.n_haplotypes,
+            measure=config.ld_measure,
+            thres=config.ld_low_thres,
+            max_dist=config.max_dist,
+            checkpoint_dir=config.checkpoint_dir,
+            mesh=config.mesh(),
+            multiprocess=multiprocess,
+            resident_key=_resident_key(data, cd),
+            device=config.device,
+        )
+        stats.update(hits.stats)
+        if len(segments) == 1:  # one ploidy profile: its cohort
+            (seg,) = segments
+            stats.update(
+                repack_rows=0 if seg.cols is None else cd.n_variants,
+                cohort_haplotypes=seg.n_alleles,
+                cohort_repack_s=(0.0 if seg.cols is None
+                                 else stats.get("gather_rows_s", 0.0)))
         if not write:
             return ScanReport(chrom=chrom, path=None,
                               n_hits=int(len(hits.i)), stats=stats)

@@ -1,7 +1,6 @@
 """The port stands alone: no JAX, nothing of ld_tools_tpu, cuda by default."""
 
 import ast
-import dataclasses
 import os
 import pkgutil
 import subprocess
@@ -582,15 +581,16 @@ def test_scan_unknown_resident_raises(resident):
 
 
 def test_mixed_ploidy_scan_raises(tmp_path, monkeypatch):
-    """The mixed-ploidy scan runs on the CPU when asked; asked for the
-    card with no card it raises, and nothing runs on the CPU in its
-    place."""
+    """The mixed-ploidy scan (``scan_segments`` over the tool's ploidy
+    segments) runs on the CPU when asked; asked for the card with no card
+    it raises, and nothing runs on the CPU in its place."""
     import numpy as np
 
     from ld_tools_tpu_torch.ingest import prep as torch_prep
     from ld_tools_tpu_torch.ingest import synth
     from ld_tools_tpu_torch.tools.common import DataConfig
-    from ld_tools_tpu_torch.tools.scan import ScanConfig, _scan_mixed_chromosome
+    from ld_tools_tpu_torch.ops.segment_scan import scan_segments
+    from ld_tools_tpu_torch.tools.scan import ScanConfig, ploidy_segments
 
     d = str(tmp_path)
     rng = np.random.default_rng(77)
@@ -604,16 +604,54 @@ def test_mixed_ploidy_scan_raises(tmp_path, monkeypatch):
     torch_prep.prep_intgen_data(d)
     data = DataConfig.resolve(d, True, "both", "all")
     cd = data.store().chrom("X")
-    cp = cd.cohort_ploidy(data.sample_names)
+    segments = ploidy_segments(cd, data.sample_names)
     config = ScanConfig(chroms=("X",), trg_dir_path=d, ld_measure="r_square",
                         ld_low_thres=0.2, max_dist=None)
     assert config.device == "cuda"
-    assert _scan_mixed_chromosome(
-        data, cd, cp, dataclasses.replace(config, device="cpu")).stats[
-            "segments"] == 3
+
+    def scan(device):
+        return scan_segments(cd.packed, cd.pos, segments, cd.n_haplotypes,
+                             measure=config.ld_measure,
+                             thres=config.ld_low_thres, device=device)
+
+    assert scan("cpu").stats["segments"] == 3
     _no_card(monkeypatch)
     with pytest.raises(RuntimeError, match="no CUDA card"):
-        _scan_mixed_chromosome(data, cd, cp, config)
+        scan(config.device)
+
+
+def test_the_scan_tool_reaches_only_the_segment_scan():
+    """``tools/scan.py`` leaves the chromosome's scan to
+    ``ops/segment_scan.py``: it imports nothing from the engine, the
+    kernels' wrappers or the store's packing, and no private name of
+    another module of the port, by import or through an imported
+    module."""
+    below = {"ld_tools_tpu_torch.ops.engine",
+             "ld_tools_tpu_torch.ops.ld_kernels",
+             "ld_tools_tpu_torch.ingest.pack"}
+    with open(os.path.join(PORT_DIR, "tools", "scan.py")) as fh:
+        tree = ast.parse(fh.read())
+    modules = set()  # names bound to a module of the port
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                assert a.name not in below, a.name
+                if a.name.startswith("ld_tools_tpu_torch"):
+                    modules.add(a.asname or a.name.split(".")[0])
+        elif isinstance(node, ast.ImportFrom):
+            assert node.module not in below, node.module
+            for a in node.names:
+                full = f"{node.module}.{a.name}"
+                assert full not in below, full
+                if node.module.startswith("ld_tools_tpu_torch"):
+                    assert not a.name.startswith("_"), full
+                    modules.add(a.asname or a.name)
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Attribute)
+                and isinstance(node.value, ast.Name)
+                and node.value.id in modules):
+            name = f"{node.value.id}.{node.attr}"
+            assert not node.attr.startswith("_"), name
 
 
 def test_wrappers_refuse_other_devices():

@@ -89,7 +89,8 @@ def test_chrx_scan_tsv_is_byte_identical(xstore, tmp_path, monkeypatch,
             monkeypatch.setattr(eng, "_HOST_COUNTS_MACS", 0)
     kw = dict(measure=measure, thres=thres, max_dist=max_dist)
     name, want = _jax_tsv(xstore, str(tmp_path / "jax"), "X", **kw)
-    with caplog.at_level("INFO", logger="tpu_ld.tools.scan"):
+    with caplog.at_level("INFO", logger="tpu_ld.tools.scan"), \
+            caplog.at_level("INFO", logger="tpu_ld.ops.segment_scan"):
         (report,) = torch_ld_scan.main(_torch_argv(
             xstore, str(tmp_path / "torch"), "X", **kw))
     assert os.path.basename(report.path) == name

@@ -2,7 +2,8 @@
 the counts (``ops/ld_kernels.exact_keep_mask`` with each side's list
 length), the engine's job that
 applies it (``ops/engine.rect_candidates_async``) and the f64 finish of
-the cells it passes (``tools/scan.rect_hits``), against the full-block
+the cells it passes (``ops/ld_stream._exact_refilter_counts``, the
+scan's own finish), against the full-block
 path they replace: every cell of a rectangle finished in f64
 (``exact_ld_from_counts`` with each side's list length), rounded to four
 places, ``>= thres`` and, with a window, the distance test."""
@@ -14,7 +15,7 @@ import torch
 from ld_tools_tpu_torch.ops import engine
 from ld_tools_tpu_torch.ops.exact import exact_ld_from_counts, round4
 from ld_tools_tpu_torch.ops.ld_kernels import KEEP_MARGIN, exact_keep_mask
-from ld_tools_tpu_torch.tools.scan import rect_hits
+from ld_tools_tpu_torch.ops.ld_stream import _exact_refilter_counts
 
 MEASURES = ("r_square", "d_prime")
 THRESHOLDS = (0.8, 0.2, 1.0, 0.0)
@@ -153,7 +154,8 @@ def _old_hits(g1, g2, c1, c2, len1, len2, r0, c0, pos1, pos2, measure,
 @pytest.mark.parametrize("max_dist", [None, 3000])
 def test_the_candidates_finish_to_the_full_block_hits(
         monkeypatch, counts, len1, len2, measure, thres, max_dist):
-    """The engine's candidates, finished by ``rect_hits``, give the
+    """The engine's candidates, finished by ``_exact_refilter_counts``
+    with each side's list length, give the
     full-block path's six arrays bit for bit, in its order; at a
     threshold under the margin every cell is a candidate (and the equal
     lengths reach the native pairwise finisher past 65,536 cells)."""
@@ -173,21 +175,24 @@ def test_the_candidates_finish_to_the_full_block_hits(
     rows, cols, c_ab = fin()
     if thres <= KEEP_MARGIN and max_dist is None:
         assert rows.size == v1 * v2
-    stats = {}
-    got = rect_hits((rows, cols, c_ab), r0, c0, c1, c2, n, len1, len2,
-                    measure, thres, stats)
+    hits = _exact_refilter_counts(c_ab, c1[rows], c2[cols], n, rows + r0,
+                                  cols + c0, measure, thres, len1=len1,
+                                  len2=len2)
+    got = (hits.i, hits.j, hits.r_square, hits.d_prime,
+           hits.r_square_is_int_zero, hits.d_prime_is_int_zero)
     want = _old_hits(g1, g2, c1, c2, len1, len2, r0, c0, pos1, pos2,
                      measure, thres, max_dist)
-    assert want[0].size > 0 and got is not None
+    assert want[0].size > 0 and hits.exact
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
-    assert stats["rect_exact_s"] >= 0
 
 
 def test_no_candidate_is_no_hit():
-    empty = (np.zeros(0, np.int64),) * 3
-    stats = {}
-    assert rect_hits(empty, 0, 0, np.zeros(0), np.zeros(0), 10, 10, 20,
-                     "r_square", 0.8, stats) is None
-    assert stats == {}
+    empty = np.zeros(0, np.int64)
+    hits = _exact_refilter_counts(empty, empty, empty, 10, empty, empty,
+                                  "r_square", 0.8, len1=10, len2=20)
+    for name in ("i", "j", "r_square", "d_prime", "r_square_is_int_zero",
+                 "d_prime_is_int_zero"):
+        assert getattr(hits, name).size == 0, name
+    assert hits.i.dtype == np.int64 and hits.r_square_is_int_zero.dtype == bool
