@@ -54,7 +54,10 @@ Phases, each of which exits non-zero on any failure:
             chromosome VCF) scanned with -w 1000000 at the default limit,
             where ``auto`` keeps the bytes packed.  The launch counts are
             read around each run and every run's hits are held against an
-            f64 recount of sampled hits and pairs.  K4's launches in that
+            f64 recount of sampled hits and pairs; every run's TSV must
+            come from the native writer (``tsv_native`` 1, also in the
+            parity phase's -E cuda and -E torch runs, whose bytes must be
+            equal).  K4's launches in that
             run are recorded and timed inside it, then replayed beside
             their plain versions and torch._int_mm;
    area     ld_area (``ld_tools_tpu_torch.ld_area.main``) on the chr21
@@ -1396,9 +1399,13 @@ def _log_scan(tag, report, secs, launches):
         + f"; blocks {st['blocks']}, hit blocks {st['hit_blocks']}, "
         f"resident {'packed' if st['resident_packed'] else 'int8'} "
         f"{st['resident_bytes'] / 1e6:.1f} MB, resident hit "
-        f"{st['resident_hit']:.0f}; launches {ran}")
+        f"{st['resident_hit']:.0f}; tsv_native {st['tsv_native']}, "
+        f"write {st['write_s']:.3f}s (format {st['format_s']:.3f}s, emit "
+        f"{st['emit_s']:.3f}s); launches {ran}")
     check(st["blocks_checked"] == st["hit_blocks"],
           "pass 2 did not check every hit block against pass 1")
+    check(st["tsv_native"] == 1, f"scan ({tag}): the TSV took the plain "
+          f"path ({st.get('tsv_plain_reason')}), not the native writer")
 
 
 # the count and sweep kernels of each resident layout (packed or not)
@@ -2559,6 +2566,9 @@ def phase_parity(work, triangle_runs):
                                       "-z", "0.8", "-E", engine])
         finally:
             os.environ.pop(LIMIT, None)
+        check(report.stats["tsv_native"] == 1, f"parity: -E {tag}: the "
+              "TSV took the plain path "
+              f"({report.stats.get('tsv_plain_reason')})")
         with open(report.path, "rb") as fh:
             bodies[tag] = fh.read()
         log(f"parity: -E {tag}: {report.n_hits} hits in "
@@ -2646,6 +2656,9 @@ def _parity_mixed_scan(work, datax):
             engine.count_on_device.launches > 0) == (eng == "cuda"),
             f"parity: chrX scan -E {eng}: {report.stats['rects']} "
             f"rectangles, {engine.count_on_device.launches} engine launches")
+        check(report.stats["tsv_native"] == 1, f"parity: chrX scan -E {eng}"
+              f": the TSV took the plain path "
+              f"({report.stats.get('tsv_plain_reason')})")
         with open(report.path, "rb") as fh:
             bodies[eng] = fh.read()
     check(bodies["cuda"] == bodies["torch"] and bodies["cuda"].count(b"\n")
