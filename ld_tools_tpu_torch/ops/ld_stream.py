@@ -387,19 +387,29 @@ def _scan_blocks(v: int, pos: np.ndarray, count_block: int, max_dist):
 
     With a distance window, a block wholly below the diagonal whose
     closest pair (first row, last col; positions ascend) is farther
-    apart than ``max_dist`` is pruned on the host."""
+    apart than ``max_dist`` is pruned on the host.  Positions ascend, so
+    a block row keeps one run of columns, from the first whose last
+    position lies within ``max_dist`` of the row's first up to the
+    diagonal, and the lists are built from those runs: time and memory
+    follow the kept blocks, not every block pair."""
     nb = -(-v // count_block)
-    bi, bj = np.tril_indices(nb)
-    if max_dist is not None:
-        row_lo = bi * count_block
-        col_hi = bj * count_block + count_block - 1
-        below = col_hi < row_lo
-        row_s = np.minimum(row_lo, v - 1)
-        col_e = np.minimum(col_hi, v - 1)
-        far = pos[row_s] - pos[col_e] > max_dist
-        keep = ~(below & far)
-        bi, bj = bi[keep], bj[keep]
-    return bi, bj
+    if max_dist is None:
+        return np.tril_indices(nb)
+    rows = np.arange(nb)
+    # block bj < bi lies wholly below the diagonal: its last column is
+    # bj * count_block + count_block - 1 < v
+    col_last = pos[rows[:-1] * count_block + count_block - 1]
+    first = np.minimum(np.searchsorted(
+        col_last, pos[rows * count_block] - max_dist, side="left"), rows)
+    return _runs(rows, first, rows + 1)
+
+
+def _runs(rows, start, stop):
+    """(row, col) of the runs ``start[k] <= col < stop[k]`` of each row
+    ``rows[k]``, row by row."""
+    n = stop - start
+    row = np.repeat(rows, n)
+    return row, np.arange(row.size) - np.repeat(np.cumsum(n) - n - start, n)
 
 
 def _scan_tiles(v, pos, band, chunk, bi, bj, count_block, max_dist):
@@ -411,26 +421,32 @@ def _scan_tiles(v, pos, band, chunk, bi, bj, count_block, max_dist):
     tile that holds its top-left cell.  A tile the pruning drops is kept
     all the same when it holds a block that can hold a kept pair, which
     happens only when ``count_block`` does not divide the tiling.
+    As in :func:`_scan_blocks`, a row band keeps one run of chunks up to
+    the diagonal (the pruned ones, wholly left of the band, come first),
+    so the tiles cost what is kept.
     Returns (tiles: [(r0, c0)], home: each block's index into tiles)."""
     n_r, n_c = -(-v // band), -(-v // chunk)
+    r0 = np.arange(n_r) * band
+    # a band's chunks are c0 < r0 + nr; its first r0 // chunk lie wholly
+    # left of it, where the window may prune them
+    stop = -(-np.minimum(r0 + band, v) // chunk)
+    first = np.zeros(n_r, dtype=np.int64)
+    if max_dist is not None:
+        col_last = pos[np.arange(v // chunk) * chunk + chunk - 1]
+        first = np.minimum(np.searchsorted(
+            col_last, pos[r0] - max_dist, side="left"), r0 // chunk)
     tr = bi.astype(np.int64) * count_block // band
     tc = bj.astype(np.int64) * count_block // chunk
-    has_block = np.zeros((n_r, n_c), dtype=bool)
-    has_block[tr, tc] = True
-    tiles = []
-    for r0 in range(0, v, band):
-        nr = min(band, v - r0)
-        for c0 in range(0, r0 + nr, chunk):
-            if max_dist is not None:
-                last = min(c0 + chunk, v) - 1
-                if (last < r0 and int(pos[r0]) - int(pos[last]) > max_dist
-                        and not has_block[r0 // band, c0 // chunk]):
-                    continue
-            tiles.append((r0, c0))
-    index = np.full((n_r, n_c), -1, dtype=np.int64)
-    for k, (r0, c0) in enumerate(tiles):
-        index[r0 // band, c0 // chunk] = k
-    return tiles, index[tr, tc]
+    # tile keys ascend in the scan's order
+    key = tr * n_c + tc
+    run_r, run_c = _runs(np.arange(n_r), first, stop)
+    keys = run_r * n_c + run_c
+    kept = np.unique(key[tc < first[tr]])  # the has-a-block exception
+    if kept.size:
+        keys = np.union1d(keys, kept)
+    tiles = list(zip((keys // n_c * band).tolist(),
+                     (keys % n_c * chunk).tolist()))
+    return tiles, np.searchsorted(keys, key)
 
 
 def _replicate(res: Resident, devices) -> dict:

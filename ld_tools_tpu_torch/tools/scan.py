@@ -223,11 +223,12 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
             cohort = f"; resident_gather {stats['resident_gather']:.0f}"
         log.info(
             "chr%s: %d/%d pairs above threshold (%.1fs, %.2f Gpairs/s; open "
-            "%.2fs, write %.2fs: format %.2fs, emit %.2fs; tsv_bytes %d, "
-            "tsv_native %d%s%s) -> %s",
+            "%.2fs, write %.2fs: format %.2fs, emit %.2fs; blocks %d, "
+            "batches %d, tsv_bytes %d, tsv_native %d%s%s) -> %s",
             chrom, len(hits.i), int(n_pairs), elapsed,
             n_pairs / max(elapsed, 1e-9) / 1e9, stats["open_s"],
             stats["write_s"], stats["format_s"], stats["emit_s"],
+            stats.get("blocks", 0), stats.get("batches", 0),
             stats["tsv_bytes"], stats["tsv_native"],
             (f" ({stats['tsv_plain_reason']})"
              if "tsv_plain_reason" in stats else ""), cohort, path,
