@@ -17,8 +17,9 @@ here keeps a stream or event shared between calls.  Every job counted on
 the card adds one to ``count_on_device.launches``.
 
 ``rect_candidates_async`` is the port's own (JAX's scan finishes every
-cell of a cross-segment rectangle on the host): it tests the threshold
-on the card beside the counts and sends home only the cells that pass.
+cell of a cross-segment rectangle on the host): it takes the two sides
+as tensors already on the card, tests the threshold there beside the
+counts and sends home only the cells that pass.
 """
 
 from __future__ import annotations
@@ -208,44 +209,42 @@ def pair_counts_async(a: np.ndarray, b: np.ndarray, row_pad: int = 128,
     return finalize
 
 
-def rect_candidates_async(a: np.ndarray, b: np.ndarray, c1, c2, len1: int,
-                          len2: int, mask_thres: float, sel: int,
-                          pos1=None, pos2=None, max_dist=None,
-                          device="cuda"):
+def rect_candidates_async(a: torch.Tensor, b: torch.Tensor, c1, c2,
+                          n_hap: int, len1: int, len2: int,
+                          mask_thres: float, sel: int, pos1=None, pos2=None,
+                          max_dist=None):
     """Start one cross-ploidy rectangle's count job with its threshold
     test WITHOUT waiting (the mixed-ploidy scan's rectangles).
 
-    ``a`` (V1, n) and ``b`` (V2, n) are the two sides' {0, 1} rows zipped
-    to the shorter list; ``c1`` (V1,) and ``c2`` (V2,) each row's alt count
-    over its own full list of ``len1`` / ``len2``.  On the job's side
-    stream: the int32 counts, :func:`ld_kernels.exact_keep_mask` at
-    ``mask_thres`` for measure ``sel`` (0 r^2, 1 D') with the two lengths
-    and, with ``max_dist``, |pos1 - pos2| <= max_dist.  Returns
-    ``finalize() -> (rows, cols, c_ab)``: the cells that pass, row-major,
-    as int64 offsets into the rectangle with their counts.
-    ``finalize()`` waits on the job's event, then compacts on the card,
-    so no count matrix travels home.  A job under ``_HOST_COUNTS_MACS``
-    counts in host BLAS and runs the same mask on CPU tensors, as does
-    the CPU device.
+    ``a`` (V1, W) and ``b`` (V2, W) are the two sides' int8 {0, 1} rows on
+    one device, each zero past its own list of ``len1`` / ``len2``, so
+    their product over W is the zip over the first ``n_hap`` = min(len1,
+    len2) columns (calc_ld.py:30-33); ``c1`` (V1,) and ``c2`` (V2,) are
+    each row's alt count over its own full list, int32 on that device.
+    On the card, on the job's side stream (after the work issued so far
+    on the current stream, which built the sides): the int32 counts,
+    :func:`ld_kernels.exact_keep_mask` at ``mask_thres`` for measure
+    ``sel`` (0 r^2, 1 D') with the two lengths and, with ``max_dist``,
+    |pos1 - pos2| <= max_dist.  Returns ``finalize() -> (rows, cols,
+    c_ab)``: the cells that pass, row-major, as int64 offsets into the
+    rectangle with their counts.  ``finalize()`` waits on the job's
+    event, then compacts on the card, so no count matrix travels home.
+    CPU tensors run the same test at once; below ``_HOST_COUNTS_MACS``
+    their counts are a host f32 BLAS product.
     """
-    n_hap = a.shape[1]
-    if b.shape[1] != n_hap:
+    if a.shape[1] != b.shape[1] or a.device != b.device:
         raise ValueError(
-            f"haplotype axes differ: {a.shape[1]} vs {b.shape[1]}")
-    va, vb = a.shape[0], b.shape[0]
+            f"the sides must share a width and a device: {a.shape[1]} on "
+            f"{a.device} vs {b.shape[1]} on {b.device}")
+    dev = a.device
+    va, vb, w = a.shape[0], b.shape[0], a.shape[1]
 
-    def side(x, dev, dtype):
-        return torch.from_numpy(np.ascontiguousarray(x, dtype=dtype)).to(
-            dev, non_blocking=True)
-
-    def test(cab, dev):
-        keep = exact_keep_mask(
-            cab, side(c1, dev, np.int32)[:, None],
-            side(c2, dev, np.int32)[None, :], n_hap, mask_thres, sel,
-            len1=len1, len2=len2)
+    def test(cab):
+        keep = exact_keep_mask(cab, c1[:, None], c2[None, :], n_hap,
+                               mask_thres, sel, len1=len1, len2=len2)
         if max_dist is not None:
-            p1 = side(pos1, dev, np.int64)
-            p2 = side(pos2, dev, np.int64)
+            p1, p2 = (torch.from_numpy(np.asarray(p, dtype=np.int64)).to(
+                dev, non_blocking=True) for p in (pos1, pos2))
             keep &= (p1[:, None] - p2[None, :]).abs() <= int(max_dist)
         return keep
 
@@ -255,22 +254,26 @@ def rect_candidates_async(a: np.ndarray, b: np.ndarray, c1, c2, len1: int,
         out = out.cpu().numpy()
         return out[0], out[1], out[2]
 
-    if (va * vb * max(n_hap, 1) < _HOST_COUNTS_MACS
-            and n_hap < (1 << 24)):
-        cab = torch.from_numpy(_pair_counts_host(a, b, sums=False))
-        out = compact(cab, test(cab, cab.device))
-        return lambda: out
-    dev = resolve_device(device)
-
-    def work():  # count_on_device's downcast is exact; the mask reads int32
-        cab = count_on_device(side(a, dev, np.int8),
-                              side(b, dev, np.int8)).to(torch.int32)
-        return cab, test(cab, dev)
-
     if dev.type != "cuda":
-        out = compact(*work())
+        if va * vb * max(w, 1) < _HOST_COUNTS_MACS and w < (1 << 24):
+            cab = torch.from_numpy(
+                _pair_counts_host(a.numpy(), b.numpy(), sums=False))
+        else:  # count_on_device's downcast is exact; the mask reads int32
+            cab = count_on_device(a, b).to(torch.int32)
+        out = compact(cab, test(cab))
         return lambda: out
-    (cab, keep), stream, done = _launch(dev, work)
+
+    def work():
+        stream = torch.cuda.current_stream(dev)
+        for t in (a, b, c1, c2):  # freed by the caller while in use here
+            t.record_stream(stream)
+        cab = count_on_device(a, b).to(torch.int32)
+        return cab, test(cab)
+
+    with device_guard(dev):
+        built = torch.cuda.Event()
+        built.record()
+    (cab, keep), stream, done = _launch(dev, work, after=built)
 
     def finalize():
         done.synchronize()

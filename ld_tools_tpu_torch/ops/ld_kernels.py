@@ -1293,10 +1293,11 @@ def gather_rows_device_plain(src, cols, out, counts):
 
 
 def gather_rows_device(src, cols, out, counts):
-    """Rows of the scan's resident from the store's raw packed rows: the
-    launch site of ld_gather_rows_kernel (csrc/ld_gather_rows.cu), which
-    replaces no TPU kernel (the JAX scan repacks and popcounts on the
-    host).
+    """Rows of the scan's resident, and of the two sides of the mixed
+    scan's cross-segment rectangles, from the store's raw packed rows:
+    the launch site of ld_gather_rows_kernel (csrc/ld_gather_rows.cu),
+    which replaces no TPU kernel (the JAX scan repacks and popcounts on
+    the host).
 
     ``src`` (n, B) uint8 holds the store's rows (8 haplotypes a byte, MSB
     first); ``cols`` a (k,) int32 list of bit columns (a cohort's

@@ -9,10 +9,12 @@ is one segment over all its rows: one streamed scan
 every cross-segment rectangle (i from the later segment, j from the
 earlier one) in blocks of rows through the engine's counts and threshold
 test with each side's own list length (the reference's zip truncation,
-calc_ld.py:30-33); only the cells that pass are finished in f64.  The
+calc_ld.py:30-33); only the cells that pass are finished in f64.  Both
+sides of a rectangle are gathered on the device from the store's packed
+rows with their segment's columns, as the segments' residents are.  The
 parts meet in one merge, sorted by (i, j).
 
-The streamed scan, its f64 finish and the column repack are looked up
+The streamed scan, its f64 finish and the row gather are looked up
 through their modules at each call, so that whatever wraps them there (a
 trace's spans, a fault injection) sees every call.
 """
@@ -22,11 +24,12 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
-from ld_tools_tpu_torch.ingest import pack
-from ld_tools_tpu_torch.ops import engine, ld_stream
+from ld_tools_tpu_torch.ops import engine, ld_kernels, ld_stream
 from ld_tools_tpu_torch.ops.ld_kernels import KEEP_MARGIN
 from ld_tools_tpu_torch.ops.ld_stream import ScanHits
+from ld_tools_tpu_torch.utils.device import resolve_device
 from ld_tools_tpu_torch.utils.distributed import process_count, process_index
 from ld_tools_tpu_torch.utils.logging import get_logger
 from ld_tools_tpu_torch.utils.profiling import span
@@ -53,14 +56,13 @@ class Segment:
     n_alleles: int
 
 
-def scan_segments(packed, pos, segments, n_haplotypes, *, measure, thres,
+def scan_segments(packed, pos, segments, *, measure, thres,
                   max_dist=None, checkpoint_dir=None, mesh=None,
                   multiprocess=False, resident_key=None,
                   device="cuda") -> ScanHits:
     """Scan a chromosome's store rows ``packed`` (V, B) at positions
     ``pos`` over its ``segments`` (:class:`Segment`, in row order, covering
-    every row); ``n_haplotypes`` is the store's own count, the layout the
-    rectangles repack from.  The other arguments are
+    every row).  The other arguments are
     :func:`ld_stream.stream_threshold_scan`'s.  Returns the exact hits,
     sorted by (i, j), with i > j indexing the chromosome's rows.
 
@@ -68,12 +70,14 @@ def scan_segments(packed, pos, segments, n_haplotypes, *, measure, thres,
     up the segment scans' numeric stats (phases, blocks;
     ``resident_packed`` counts the packed segments, ``resident_dense`` the
     int8 ones, ``resident_gather`` the gathered ones) and report
-    ``segments``, ``rects``, ``repack_s`` (the rectangles' host column
-    repacks), ``merge_s`` and the rectangles' ``rect_dispatch_s`` and
-    ``rect_finish_s``, with its parts ``rect_wait_s`` (the engine's
-    candidates arriving) and ``rect_exact_s`` (their f64 finish), and the
-    counters ``rect_cells`` (cells the rectangles' counts covered) and
-    ``rect_candidates`` (cells the engine's threshold test passed).  Each
+    ``segments``, ``rects``, ``repack_s`` (building the rectangles' sides:
+    staging, upload, gather and their counts home), ``merge_s`` and the
+    rectangles' ``rect_dispatch_s`` and ``rect_finish_s``, with its parts
+    ``rect_wait_s`` (the engine's candidates arriving) and
+    ``rect_exact_s`` (their f64 finish), and the counters ``rect_cells``
+    (cells the rectangles' counts covered), ``rect_candidates`` (cells the
+    engine's threshold test passed) and ``rect_gather_rows`` (rows the
+    sides gathered on the device).  Each
     segment checkpoints on its own (fingerprinted by its content); the
     rectangles recompute on resume."""
     pos = np.asarray(pos)
@@ -103,8 +107,8 @@ def scan_segments(packed, pos, segments, n_haplotypes, *, measure, thres,
                                          j=hits.j + seg.start))
     n_proc, proc_idx = ((process_count(), process_index()) if multiprocess
                         else (1, 0))
-    rects = _rectangle_hits(packed, pos, segments, n_haplotypes, measure,
-                            thres, max_dist, n_proc, proc_idx, device, stats)
+    rects = _rectangle_hits(packed, pos, segments, measure, thres,
+                            max_dist, n_proc, proc_idx, device, stats)
     stats["segments"] = len(segments)
 
     with span("scanx.merge", stats, "merge_s"):
@@ -129,27 +133,35 @@ def _merge(parts, stats=None) -> ScanHits:
                     **{f: a[order] for f, a in cat.items()})
 
 
-def _rectangle_hits(packed, pos, segments, n_haplotypes, measure, thres,
-                    max_dist, n_proc, proc_idx, device, stats) -> list:
+def _rectangle_hits(packed, pos, segments, measure, thres, max_dist,
+                    n_proc, proc_idx, device, stats) -> list:
     """The finished hit parts of this process's cross-segment rectangles,
     restricted to the ``max_dist`` corner.
 
-    Loop order is later segment -> row block -> earlier segment: each row
-    block is repacked once, and each earlier segment's columns once and
-    kept.  Two-slot pipeline: pulling job k+1 from the generator launches
-    its counts and threshold test (after its host unpacking) while job
-    k's candidates are finished in f64 on the host; the engine launches on
-    a side stream, so the card works between rectangles.  Under a
+    Loop order is later segment -> row block -> earlier segment.  Each
+    side's rows come from :func:`_side_rows`, gathered on ``device`` from
+    the store's packed rows: each row block of the later segment once,
+    and each earlier segment once per later one, from its clipped first
+    row on.  Every side is as wide as a store row's bits (rounded up to
+    16) and zero past its own list, so the product of two sides is their
+    zip over the shorter list (the reference's truncation,
+    calc_ld.py:30-33).  Two-slot pipeline: pulling job k+1 from the
+    generator launches its counts and threshold test while job k's
+    candidates are finished in f64 on the host; the engine launches on a
+    side stream, so the card works between rectangles.  Under a
     cooperative scan the jobs stride across the ``n_proc`` processes."""
     sel = 0 if measure == "r_square" else 1
     mask_thres = float(thres) - KEEP_MARGIN
-    earlier = {}
+    dev = resolve_device(device)
+    width = -(-8 * packed.shape[1] // 16) * 16
+    seg_cols = {}
 
-    def columns(seg, r0, r1):
-        cols = np.arange(seg.n_alleles) if seg.cols is None else seg.cols
-        with span("scanx.repack", stats, "repack_s"):
-            return pack.pack_columns(np.ascontiguousarray(packed[r0:r1]),
-                                     cols, n_haplotypes)
+    def side(si, r0, r1):
+        seg = segments[si]
+        if si not in seg_cols:
+            seg_cols[si] = (None if seg.cols is None else torch.from_numpy(
+                np.asarray(seg.cols, dtype=np.int32)).to(dev))
+        return _side_rows(packed, r0, r1, seg_cols[si], width, dev, stats)
 
     def jobs():
         job_idx = 0
@@ -173,20 +185,19 @@ def _rectangle_hits(packed, pos, segments, n_haplotypes, measure, thres,
                         continue
                 clipped.append((ai, a0, a1, b1))
                 b1_max = max(b1_max, b1)
+            earlier = {}
             for r0 in range(B0, b1_max, _RECT_ROWS):
                 r1_max = min(r0 + _RECT_ROWS, b1_max)
-                Ci = np.unpackbits(columns(seg_i, r0, r1_max), axis=1,
-                                   count=n_i).astype(np.int8)
-                c1_rows_full = Ci.sum(axis=1, dtype=np.int64)
+                Ci, ci, ci_home = side(bi, r0, r1_max)
                 for ai, a0, a1, b1 in clipped:
                     if r0 >= b1:
                         continue
                     r1 = min(r1_max, b1)
-                    seg_j = segments[ai]
-                    A0, n_j = seg_j.start, seg_j.n_alleles
+                    n_j = segments[ai].n_alleles
                     m = min(n_i, n_j)
                     if ai not in earlier:
-                        earlier[ai] = columns(seg_j, A0, seg_j.stop)
+                        earlier[ai] = side(ai, a0, a1)
+                    Cj, cj, cj_home = earlier[ai]
                     for c0 in range(a0, a1, 4 * _RECT_ROWS):
                         c1_stop = min(c0 + 4 * _RECT_ROWS, a1)
                         if max_dist is not None and (
@@ -195,17 +206,13 @@ def _rectangle_hits(packed, pos, segments, n_haplotypes, measure, thres,
                         job_idx += 1
                         if (job_idx - 1) % n_proc != proc_idx:
                             continue  # another process owns this one
-                        Cj = np.unpackbits(earlier[ai][c0 - A0:c1_stop - A0],
-                                           axis=1, count=n_j).astype(np.int8)
-                        c1_rows = c1_rows_full[:r1 - r0]
-                        c1_cols = Cj.sum(axis=1, dtype=np.int64)
+                        j0, j1 = c0 - a0, c1_stop - a0
                         fin = engine.rect_candidates_async(
-                            Ci[:r1 - r0, :m], Cj[:, :m], c1_rows, c1_cols,
-                            n_i, n_j, mask_thres, sel, pos1=pos[r0:r1],
-                            pos2=pos[c0:c1_stop], max_dist=max_dist,
-                            device=device)
-                        yield (r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows,
-                               c1_cols, fin)
+                            Ci[:r1 - r0], Cj[j0:j1], ci[:r1 - r0], cj[j0:j1],
+                            m, n_i, n_j, mask_thres, sel, pos1=pos[r0:r1],
+                            pos2=pos[c0:c1_stop], max_dist=max_dist)
+                        yield (r0, r1, c0, c1_stop, n_i, n_j, m,
+                               ci_home[:r1 - r0], cj_home[j0:j1], fin)
 
     parts = []
 
@@ -222,7 +229,8 @@ def _rectangle_hits(packed, pos, segments, n_haplotypes, measure, thres,
                     cols + c0, measure, thres, len1=n_i, len2=n_j))
 
     stats.update(rect_dispatch_s=0.0, rect_finish_s=0.0, rect_wait_s=0.0,
-                 rect_exact_s=0.0, rects=0, rect_cells=0, rect_candidates=0)
+                 rect_exact_s=0.0, rects=0, rect_cells=0, rect_candidates=0,
+                 rect_gather_rows=0)
     pending = None
     it = jobs()
     while True:
@@ -239,7 +247,32 @@ def _rectangle_hits(packed, pos, segments, n_haplotypes, measure, thres,
         log.info(
             "cross-segment rectangles: %d blocks, dispatch %.2fs "
             "(overlapped), finish %.2fs; rect_candidates %d of "
-            "rect_cells %d", stats["rects"], stats["rect_dispatch_s"],
-            stats["rect_finish_s"], stats["rect_candidates"],
-            stats["rect_cells"])
+            "rect_cells %d; rect_gather_rows %d", stats["rects"],
+            stats["rect_dispatch_s"], stats["rect_finish_s"],
+            stats["rect_candidates"], stats["rect_cells"],
+            stats["rect_gather_rows"])
     return parts
+
+
+def _side_rows(packed, r0, r1, cols, width, dev, stats):
+    """Rows ``[r0, r1)`` of the store's packed rows as one side of the
+    rectangles: staged (in pinned memory on the card) and uploaded once,
+    then gathered on ``dev`` by :func:`ld_kernels.gather_rows_device`
+    with the segment's bit columns ``cols`` (an int32 tensor on ``dev``,
+    or None for the full layout) into int8 {0, 1} rows ``width`` wide,
+    zero past the list.  Returns (the rows, their alt counts over the
+    list on ``dev``, the same counts home as int64, in one small copy).
+    Timed as ``repack_s`` (span ``scanx.repack``: what replaced the
+    host's column repack), counted in ``rect_gather_rows``."""
+    with span("scanx.repack", stats, "repack_s"):
+        src = packed[r0:r1]
+        stage = torch.empty(src.shape, dtype=torch.uint8,
+                            pin_memory=dev.type == "cuda")
+        np.copyto(stage.numpy(), src)
+        rows = torch.empty((r1 - r0, width), dtype=torch.int8, device=dev)
+        counts = torch.empty((r1 - r0,), dtype=torch.int32, device=dev)
+        ld_kernels.gather_rows_device(stage.to(dev, non_blocking=True), cols,
+                                      rows, counts)
+        home = counts.cpu().numpy().astype(np.int64)
+    stats["rect_gather_rows"] += r1 - r0
+    return rows, counts, home

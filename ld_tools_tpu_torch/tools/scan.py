@@ -167,7 +167,7 @@ def scan_chromosome(data: DataConfig, config: ScanConfig, chrom: str,
             config.device,
         )
         hits = scan_segments(
-            cd.packed, cd.pos, segments, cd.n_haplotypes,
+            cd.packed, cd.pos, segments,
             measure=config.ld_measure,
             thres=config.ld_low_thres,
             max_dist=config.max_dist,

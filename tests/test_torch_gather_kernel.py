@@ -9,8 +9,14 @@ start off every 16-byte boundary), the full panel (the identity) and a
 970-haplotype cohort of whole samples, in both layouts, in launches
 that fill the grid (every warp walks several rows), with a staging chunk
 that ends inside the rows (the scan's own 65,536-row chunk among them)
-and the resident's padding rows and columns.
+and the resident's padding rows and columns.  The mixed-ploidy scan's
+rectangles take their two sides from the same kernel
+(``ops/segment_scan._side_rows``): those sides, and a small chrX scan's
+TSV, against the CPU's, whose TSV tests/test_torch_mixed_scan.py holds to
+the JAX tool's byte for byte.
 """
+
+import os
 
 import numpy as np
 import pytest
@@ -108,3 +114,80 @@ def test_gathered_resident_on_the_card_equals_the_plain_one(monkeypatch,
             name
     np.testing.assert_array_equal(got.c1_full, want.c1_full)
     assert stats["resident_gather"] == 1.0 and stats["gather_rows_s"] > 0
+
+
+@pytest.mark.parametrize("kind", ["identity", "cohort"])
+def test_rectangle_sides_on_the_card_equal_the_plain_ones(kind):
+    """One side of the rectangles, rows 3 to 4,099 of the store's (a
+    range that starts off every 16-byte boundary): the int8 rows, the
+    counts on the card and the counts home equal the plain twin's."""
+    from ld_tools_tpu_torch.ops import segment_scan
+
+    _card()
+    raw, _ = _rows(4100, seed=3)
+    cols = None if kind == "identity" else _cohort()
+    lk.reset_launches()
+    sides = {}
+    for dev in ("cpu", "cuda"):
+        cols_dev = None if cols is None else torch.from_numpy(
+            cols.astype(np.int32)).to(dev)
+        stats = {"repack_s": 0.0, "rect_gather_rows": 0}
+        rows, counts, home = segment_scan._side_rows(
+            raw, 3, 4100, cols_dev, N_HAP, torch.device(dev), stats)
+        sides[dev] = (rows.cpu(), counts.cpu(), home)
+        assert stats["rect_gather_rows"] == 4097 and stats["repack_s"] > 0
+    assert lk.gather_rows_device.launches == 1
+    assert torch.equal(sides["cuda"][0], sides["cpu"][0])
+    assert torch.equal(sides["cuda"][1], sides["cpu"][1])
+    np.testing.assert_array_equal(sides["cuda"][2], sides["cpu"][2])
+    n_cols = N_HAP if cols is None else cols.size
+    assert int(sides["cuda"][0][4 - 3].sum()) == n_cols  # the all-1 row
+    assert not sides["cuda"][0][:, n_cols:].any()
+
+
+@pytest.mark.parametrize("max_dist", [None, 150_000])
+def test_a_small_chrx_scan_on_the_card_writes_the_plain_tsv(
+        tmp_path, monkeypatch, max_dist):
+    """A chrX store of 1,500 variants over 300 samples (PAR1, the males'
+    haploid stretch, PAR2) scanned with -E cuda and -E torch, with
+    rectangles of 128-row blocks: the same TSV bytes, and the card's
+    gather launched once for each segment's resident and once for each
+    side of a rectangle."""
+    from ld_tools_tpu_torch import ld_scan
+    from ld_tools_tpu_torch.ingest import prep_intgen_data, synth
+    from ld_tools_tpu_torch.ops import segment_scan
+
+    _card()
+    store = str(tmp_path / "store")
+    os.makedirs(store)
+    rng = np.random.default_rng(23)
+    panel = synth.make_panel(300, rng)
+    synth.write_panel(os.path.join(store, "samples.txt"), panel)
+    G, hap = synth.make_chrx_layout(rng, 1500, [r[3] for r in panel],
+                                    par_bounds=(0.2, 0.9))
+    synth.write_vcf(os.path.join(store, "X.vcf.gz"), "X",
+                    [r[0] for r in panel], G, haploid_masks=hap)
+    prep_intgen_data(store)
+    monkeypatch.setattr(segment_scan, "_RECT_ROWS", 128)
+    sides = []
+    side_rows = segment_scan._side_rows
+
+    def counted(*a, **kw):
+        sides.append(a[2] - a[1])
+        return side_rows(*a, **kw)
+
+    monkeypatch.setattr(segment_scan, "_side_rows", counted)
+    tsv = {}
+    for engine in ("torch", "cuda"):
+        lk.reset_launches()
+        del sides[:]
+        argv = ["-C", "X", "-D", store, "-t", str(tmp_path / engine), "-f",
+                "-E", engine, "-z", "0.2"]
+        (report,) = ld_scan.main(argv + ([] if max_dist is None
+                                         else ["-w", str(max_dist)]))
+        tsv[engine] = open(report.path, "rb").read()
+        st = report.stats
+        assert st["segments"] == 3 and st["rect_candidates"] > 0
+        assert st["rect_gather_rows"] == sum(sides) > 0
+    assert lk.gather_rows_device.launches == 3 + len(sides)
+    assert tsv["cuda"] == tsv["torch"] and tsv["cuda"].count(b"\n") > 10

@@ -610,7 +610,7 @@ def test_mixed_ploidy_scan_raises(tmp_path, monkeypatch):
     assert config.device == "cuda"
 
     def scan(device):
-        return scan_segments(cd.packed, cd.pos, segments, cd.n_haplotypes,
+        return scan_segments(cd.packed, cd.pos, segments,
                              measure=config.ld_measure,
                              thres=config.ld_low_thres, device=device)
 

@@ -110,6 +110,76 @@ def test_chrx_scan_tsv_is_byte_identical(xstore, tmp_path, monkeypatch,
     assert f"resident_gather {st['segments']}" in caplog.text
 
 
+def _clipped_rows(segments, pos, max_dist):
+    """The rows both sides of the rectangles cover, counted plainly: each
+    later segment's rows within ``max_dist`` of the row before it (the
+    nearest earlier row), and each earlier segment's rows within it of
+    the later segment's first row, once for every later segment."""
+    d = np.inf if max_dist is None else max_dist
+    rows = 0
+    for bi in range(1, len(segments)):
+        seg = segments[bi]
+        rows += int((pos[seg.start:seg.stop] - pos[seg.start - 1] <= d).sum())
+        for earlier in segments[:bi]:
+            rows += int((pos[seg.start] - pos[earlier.start:earlier.stop]
+                         <= d).sum())
+    return rows
+
+
+@pytest.mark.parametrize("max_dist,rect_rows,gend_names", [
+    (4000, 2048, "both"),   # a window that clips both sides
+    (None, 2048, "both"),   # no window: every row of both sides
+    (None, 4, "both"),      # ragged last row blocks and earlier chunks
+    (4000, 2048, "male"),   # every segment a column subset
+    (None, 4, "male"),
+])
+def test_chrx_rectangles_gather_their_sides_on_the_device(
+        xstore, tmp_path, monkeypatch, caplog, max_dist, rect_rows,
+        gend_names):
+    """The rectangles' two sides are the store's packed rows gathered by
+    ``gather_rows_device`` (its plain twin on the CPU) with each
+    segment's columns, never repacked on the host: the TSV is the JAX
+    tool's byte for byte, and ``rect_gather_rows`` counts the clipped rows
+    of both sides."""
+    from ld_tools_tpu_torch.ingest import pack
+    from ld_tools_tpu_torch.ops import segment_scan
+    from ld_tools_tpu_torch.tools.common import DataConfig
+    from ld_tools_tpu_torch.tools.scan import ploidy_segments
+
+    def no_repack(*a, **kw):
+        raise AssertionError("the scan repacked rows on the host")
+
+    monkeypatch.setattr(pack, "pack_columns", no_repack)
+    monkeypatch.setattr(segment_scan, "_RECT_ROWS", rect_rows)
+    data = DataConfig.resolve(xstore, True, gend_names, "all")
+    cd = data.store().chrom("X")
+    segments = ploidy_segments(cd, data.sample_names)
+    pos = np.asarray(cd.pos)
+    assert len(segments) == 3
+    if gend_names == "male":  # the earlier sides are column subsets too
+        assert all(seg.cols is not None for seg in segments)
+    else:
+        assert segments[0].cols is None and segments[1].cols is not None
+    if rect_rows < 2048:
+        assert (segments[2].stop - segments[2].start) % rect_rows
+    want_rows = _clipped_rows(segments, pos, max_dist)
+    if max_dist is not None:  # the window clips both sides
+        assert want_rows < _clipped_rows(segments, pos, None)
+        assert (pos[segments[1].start] - pos[segments[0].start]) > max_dist
+        assert (pos[segments[1].stop - 1] - pos[segments[0].stop - 1]
+                > max_dist)
+    kw = dict(thres=0.2, max_dist=max_dist, gend_names=gend_names)
+    name, want = _jax_tsv(xstore, str(tmp_path / "jax"), "X", **kw)
+    with caplog.at_level("INFO", logger="tpu_ld.ops.segment_scan"):
+        (report,) = torch_ld_scan.main(_torch_argv(
+            xstore, str(tmp_path / "torch"), "X", **kw))
+    assert open(report.path, "rb").read() == want and report.n_hits > 0
+    st = report.stats
+    assert st["rect_gather_rows"] == want_rows > 0
+    assert f"rect_gather_rows {want_rows}" in caplog.text
+    assert st["rect_candidates"] > 0 and st["repack_s"] > 0
+
+
 @pytest.mark.parametrize("gend_names", ["male", "both"])
 def test_chry_scan_tsv_is_byte_identical(xstore, tmp_path, gend_names):
     """One haploid profile: the single-profile path, no rectangles."""

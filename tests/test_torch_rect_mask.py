@@ -169,15 +169,31 @@ def test_the_candidates_finish_to_the_full_block_hits(
     pos2 = np.sort(rng.integers(15_000, 25_000, v2))
     n = min(len1, len2)
     fin = engine.rect_candidates_async(
-        g1[:, :n], g2[:, :n], c1, c2, len1, len2, thres - KEEP_MARGIN,
-        0 if measure == "r_square" else 1, pos1=pos1, pos2=pos2,
-        max_dist=max_dist, device="cpu")
+        *_tensors(g1[:, :n], g2[:, :n], c1, c2), n, len1, len2,
+        thres - KEEP_MARGIN, 0 if measure == "r_square" else 1, pos1=pos1,
+        pos2=pos2, max_dist=max_dist)
     rows, cols, c_ab = fin()
     if thres <= KEEP_MARGIN and max_dist is None:
         assert rows.size == v1 * v2
-    hits = _exact_refilter_counts(c_ab, c1[rows], c2[cols], n, rows + r0,
-                                  cols + c0, measure, thres, len1=len1,
-                                  len2=len2)
+    _assert_old_hits(rows, cols, c_ab, g1, g2, c1, c2, len1, len2, r0, c0,
+                     pos1, pos2, measure, thres, max_dist)
+
+
+def _tensors(g1, g2, c1, c2):
+    """The engine's operands as CPU tensors: int8 rows, int32 counts."""
+    return (torch.from_numpy(np.ascontiguousarray(g1, np.int8)),
+            torch.from_numpy(np.ascontiguousarray(g2, np.int8)),
+            torch.from_numpy(np.asarray(c1, np.int32)),
+            torch.from_numpy(np.asarray(c2, np.int32)))
+
+
+def _assert_old_hits(rows, cols, c_ab, g1, g2, c1, c2, len1, len2, r0, c0,
+                     pos1, pos2, measure, thres, max_dist):
+    """The candidates, finished with each side's list length, are the
+    full-block path's six arrays, bit for bit and in its order."""
+    hits = _exact_refilter_counts(c_ab, c1[rows], c2[cols], min(len1, len2),
+                                  rows + r0, cols + c0, measure, thres,
+                                  len1=len1, len2=len2)
     got = (hits.i, hits.j, hits.r_square, hits.d_prime,
            hits.r_square_is_int_zero, hits.d_prime_is_int_zero)
     want = _old_hits(g1, g2, c1, c2, len1, len2, r0, c0, pos1, pos2,
@@ -186,6 +202,43 @@ def test_the_candidates_finish_to_the_full_block_hits(
     for a, b in zip(got, want):
         assert a.dtype == b.dtype
         assert np.array_equal(a.view(np.uint8), b.view(np.uint8))
+
+
+@pytest.mark.parametrize("counts", ["host", "device"])
+@pytest.mark.parametrize("len1,len2", [(5008, 3775), (3775, 5008),
+                                       (37, 61), (61, 37)])
+@pytest.mark.parametrize("measure,thres", [("r_square", 0.2),
+                                           ("d_prime", 0.9),
+                                           ("r_square", 0.0004)])
+def test_sides_of_one_width_zip_to_the_shorter_list(
+        monkeypatch, counts, len1, len2, measure, thres):
+    """Each side's whole list, padded with zeros to one width (a multiple
+    of 16 past both lists), as the mixed scan gathers them: the longer
+    side has alt alleles past the zip, the shorter side's zeros there
+    leave them out of the product, and with ``n_hap`` the zip length the
+    candidates finish to the hits of the host-sliced zip, bit for bit."""
+    if counts == "device":
+        monkeypatch.setattr(engine, "_HOST_COUNTS_MACS", 0)
+    rng = np.random.default_rng(len1 * 5 + len2 + int(thres * 10))
+    v1, v2 = 200, 230
+    g1, g2, _, c1, c2 = _block(rng, v1, v2, len1, len2)
+    n = min(len1, len2)
+    longer = g1 if len1 > len2 else g2
+    assert longer[:, n:].any()  # alt alleles past the zip
+    width = -(-max(len1, len2) // 16) * 16 + 16
+    pad1, pad2 = (np.zeros((g.shape[0], width), np.int8) for g in (g1, g2))
+    pad1[:, :len1] = g1
+    pad2[:, :len2] = g2
+    r0, c0 = 300, 7
+    pos1 = np.sort(rng.integers(20_000, 30_000, v1))
+    pos2 = np.sort(rng.integers(15_000, 25_000, v2))
+    for max_dist in (None, 3000):
+        rows, cols, c_ab = engine.rect_candidates_async(
+            *_tensors(pad1, pad2, c1, c2), n, len1, len2,
+            thres - KEEP_MARGIN, 0 if measure == "r_square" else 1,
+            pos1=pos1, pos2=pos2, max_dist=max_dist)()
+        _assert_old_hits(rows, cols, c_ab, g1, g2, c1, c2, len1, len2, r0,
+                         c0, pos1, pos2, measure, thres, max_dist)
 
 
 def test_no_candidate_is_no_hit():
