@@ -12,7 +12,8 @@ test with each side's own list length (the reference's zip truncation,
 calc_ld.py:30-33); only the cells that pass are finished in f64.  Both
 sides of a rectangle are gathered on the device from the store's packed
 rows with their segment's columns, as the segments' residents are.  The
-parts meet in one merge, sorted by (i, j).
+parts meet in one merge, sorted by (i, j): every part is sorted already,
+so only the rows a rectangle touched are sorted again, by row alone.
 
 The streamed scan, its f64 finish and the row gather are looked up
 through their modules at each call, so that whatever wraps them there (a
@@ -71,13 +72,15 @@ def scan_segments(packed, pos, segments, *, measure, thres,
     ``resident_packed`` counts the packed segments, ``resident_dense`` the
     int8 ones, ``resident_gather`` the gathered ones) and report
     ``segments``, ``rects``, ``repack_s`` (building the rectangles' sides:
-    staging, upload, gather and their counts home), ``merge_s`` and the
-    rectangles' ``rect_dispatch_s`` and ``rect_finish_s``, with its parts
+    staging, upload, gather and their counts home), ``merge_s`` (with the
+    counters ``merge_hits`` and ``merge_sorted_hits``, :func:`_merge`) and
+    the rectangles' ``rect_dispatch_s`` and ``rect_finish_s``, with its parts
     ``rect_wait_s`` (the engine's candidates arriving) and
     ``rect_exact_s`` (their f64 finish), and the counters ``rect_cells``
     (cells the rectangles' counts covered), ``rect_candidates`` (cells the
     engine's threshold test passed) and ``rect_gather_rows`` (rows the
-    sides gathered on the device).  Each
+    sides gathered on the device).  Each segment's scan logs one line
+    (its rows, alleles, resident layout, columns and hits).  Each
     segment checkpoints on its own (fingerprinted by its content); the
     rectangles recompute on resume."""
     pos = np.asarray(pos)
@@ -103,40 +106,123 @@ def scan_segments(packed, pos, segments, *, measure, thres,
         for k, v in hits.stats.items():
             if isinstance(v, (int, float)):  # phases and counts: summed
                 stats[k] = stats.get(k, 0) + v
+        log.info(
+            "segment rows %d-%d: %d rows, %d alleles, resident %s, columns "
+            "%s, %d hits", seg.start, seg.stop, seg.stop - seg.start,
+            seg.n_alleles,
+            "packed" if hits.stats.get("resident_packed") else "int8",
+            "full layout" if seg.cols is None else "gathered", len(hits.i))
         parts.append(dataclasses.replace(hits, i=hits.i + seg.start,
                                          j=hits.j + seg.start))
     n_proc, proc_idx = ((process_count(), process_index()) if multiprocess
                         else (1, 0))
-    rects = _rectangle_hits(packed, pos, segments, measure, thres,
-                            max_dist, n_proc, proc_idx, device, stats)
+    rects, touched = _rectangle_hits(packed, pos, segments, measure, thres,
+                                     max_dist, n_proc, proc_idx, device,
+                                     stats)
     stats["segments"] = len(segments)
 
     with span("scanx.merge", stats, "merge_s"):
         if n_proc > 1:
             # the rectangles' strided hits meet in one collective, which
-            # every process joins, hit-less ones included; the segment
-            # scans' hits are already the same on every process
-            mine = _merge(rects)
-            rects = [ScanHits(exact=True, **ld_stream._allgather_hits(
+            # every process joins, hit-less ones included, and are sorted
+            # as one part; the segment scans' hits are already the same
+            # on every process
+            mine = _concat(rects)
+            rects = [_lexsorted(ld_stream._allgather_hits(
                 {f: getattr(mine, f) for f in _FIELDS}, _FIELDS[2:]))]
-        return _merge(parts + rects, stats)
+        out = _merge(parts, rects, touched, stats)
+    if stats["rects"]:
+        log.info(
+            "cross-segment rectangles: %d blocks, dispatch %.2fs "
+            "(overlapped), finish %.2fs; rect_candidates %d of "
+            "rect_cells %d; rect_gather_rows %d; merge %.2fs, "
+            "merge_sorted_hits %d of merge_hits %d", stats["rects"],
+            stats["rect_dispatch_s"], stats["rect_finish_s"],
+            stats["rect_candidates"], stats["rect_cells"],
+            stats["rect_gather_rows"], stats["merge_s"],
+            stats["merge_sorted_hits"], stats["merge_hits"])
+    return out
 
 
-def _merge(parts, stats=None) -> ScanHits:
-    """Finished hit parts as one ScanHits, sorted by (i, j)."""
+def _concat(parts) -> ScanHits:
+    """Hit parts as one ScanHits, in the parts' order."""
     if not parts:
+        return ScanHits.empty(True)
+    return ScanHits(exact=True, **{
+        f: np.concatenate([getattr(p, f) for p in parts]) for f in _FIELDS})
+
+
+def _lexsorted(cols) -> ScanHits:
+    """Hit arrays ``cols`` (by field) as one ScanHits sorted by (i, j)."""
+    order = np.lexsort((cols["j"], cols["i"]))
+    return ScanHits(exact=True, **{f: cols[f][order] for f in _FIELDS})
+
+
+def _merge(segs, rects, touched, stats) -> ScanHits:
+    """Finished hit parts as one ScanHits, sorted by (i, j).
+
+    ``segs`` are the segments' parts in row order, each sorted by (i, j)
+    over rows of its own.  ``rects`` are the rectangles' parts in their
+    job order: each sorted by (i, j), its rows inside ``touched``
+    (ascending disjoint row ranges [lo, hi): each later segment's rows
+    within reach of an earlier one), and where two parts hold one row,
+    the later part's columns come after the earlier one's (a row block's
+    column chunks, in column order).  Hits outside the touched ranges keep
+    their places.  Inside each range the rectangles' hits, then the
+    segments', are sorted by i alone, stably: the sort merges their
+    sorted runs, and within a row the rectangles' columns, all in earlier
+    segments, come before the segment's own.  So the work is one copy of
+    every hit plus a sort of the touched rows' runs.  Counts
+    ``merge_hits`` and ``merge_sorted_hits`` in ``stats``."""
+    stats.update(merge_hits=0, merge_sorted_hits=0)
+    if not segs and not rects:
         return ScanHits.empty(True, stats)
-    cat = {f: np.concatenate([getattr(p, f) for p in parts])
-           for f in _FIELDS}
-    order = np.lexsort((cat["j"], cat["i"]))
-    return ScanHits(exact=True, stats=stats,
-                    **{f: a[order] for f, a in cat.items()})
+    edges = np.asarray(touched, dtype=np.int64).reshape(-1)
+    n_t = edges.size // 2
+
+    def cut(p):  # piece 2t of a part lies before range t, 2t + 1 inside it
+        return [0, *np.searchsorted(p.i, edges).tolist(), len(p.i)]
+
+    seg_cuts = [cut(p) for p in segs]
+    in_range = [[] for _ in range(n_t)]  # (part, start, stop) of each range
+    for p in rects:
+        c = cut(p)
+        if any(c[2 * t + 1] > c[2 * t] for t in range(n_t + 1)):
+            raise ValueError("a rectangle's hit lies outside the touched rows")
+        for t in range(n_t):
+            in_range[t].append((p, c[2 * t + 1], c[2 * t + 2]))
+    parts = [*segs, *rects]
+    out = {f: np.empty(sum(len(p.i) for p in parts), dtype=np.result_type(
+        *[getattr(p, f) for p in parts])) for f in _FIELDS}
+    at = n_sorted = 0
+    for t in range(n_t + 1):
+        for p, c in zip(segs, seg_cuts):
+            a, b = c[2 * t], c[2 * t + 1]
+            for f in _FIELDS:
+                out[f][at:at + b - a] = getattr(p, f)[a:b]
+            at += b - a
+        if t == n_t:
+            break
+        mix = in_range[t] + [(p, c[2 * t + 1], c[2 * t + 2])
+                             for p, c in zip(segs, seg_cuts)]
+        order = np.argsort(np.concatenate([p.i[a:b] for p, a, b in mix]),
+                           kind="stable")
+        for f in _FIELDS:  # the indices are in range: "clip" takes into
+            # ``out`` directly, where "raise" would buffer a copy
+            np.take(np.concatenate([getattr(p, f)[a:b] for p, a, b in mix]),
+                    order, out=out[f][at:at + order.size], mode="clip")
+        at += order.size
+        n_sorted += order.size
+    stats.update(merge_hits=at, merge_sorted_hits=n_sorted)
+    return ScanHits(exact=True, stats=stats, **out)
 
 
 def _rectangle_hits(packed, pos, segments, measure, thres, max_dist,
-                    n_proc, proc_idx, device, stats) -> list:
+                    n_proc, proc_idx, device, stats) -> tuple:
     """The finished hit parts of this process's cross-segment rectangles,
-    restricted to the ``max_dist`` corner.
+    restricted to the ``max_dist`` corner, and the rows they may touch:
+    for each later segment [its first row, its last clipped row + 1), the
+    same on every process.
 
     Loop order is later segment -> row block -> earlier segment.  Each
     side's rows come from :func:`_side_rows`, gathered on ``device`` from
@@ -185,6 +271,8 @@ def _rectangle_hits(packed, pos, segments, measure, thres, max_dist,
                         continue
                 clipped.append((ai, a0, a1, b1))
                 b1_max = max(b1_max, b1)
+            if b1_max > B0:
+                touched.append((B0, b1_max))
             earlier = {}
             for r0 in range(B0, b1_max, _RECT_ROWS):
                 r1_max = min(r0 + _RECT_ROWS, b1_max)
@@ -215,6 +303,7 @@ def _rectangle_hits(packed, pos, segments, measure, thres, max_dist,
                                ci_home[:r1 - r0], cj_home[j0:j1], fin)
 
     parts = []
+    touched = []
 
     def finish(job):
         r0, r1, c0, c1_stop, n_i, n_j, m, c1_rows, c1_cols, fin = job
@@ -243,15 +332,7 @@ def _rectangle_hits(packed, pos, segments, measure, thres, max_dist,
         if job is None:
             break
         pending = job
-    if stats["rects"]:
-        log.info(
-            "cross-segment rectangles: %d blocks, dispatch %.2fs "
-            "(overlapped), finish %.2fs; rect_candidates %d of "
-            "rect_cells %d; rect_gather_rows %d", stats["rects"],
-            stats["rect_dispatch_s"], stats["rect_finish_s"],
-            stats["rect_candidates"], stats["rect_cells"],
-            stats["rect_gather_rows"])
-    return parts
+    return parts, touched
 
 
 def _side_rows(packed, r0, r1, cols, width, dev, stats):
